@@ -1,8 +1,12 @@
-"""CLI of the PyTorch port: ``python -m aegis_tpu_torch transcribe in.wav out.mid``
+"""CLI of the PyTorch port: ``python -m aegis_tpu_torch <command> ...``
 
-  transcribe  WAV/MP3 -> MIDI via the v1 engine (two-phase), with the
-              arguments of ``python -m aegis_tpu transcribe`` plus
-              ``--device`` (cuda by default; cpu runs the plain versions)
+Each command takes the arguments and defaults of ``python -m aegis_tpu
+<command>`` plus ``--device`` (cuda by default; cpu runs the plain
+versions):
+
+  transcribe  WAV/MP3 -> MIDI via the v1 engine (two-phase)
+  financial   WAV/MP3 -> MIDI via the v2 financial engine (5-phase)
+  batch       every matching file of a folder -> MIDI (v1 or financial)
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ def _extract_kwargs(args) -> dict:
     return kw
 
 
+def _out_path(args) -> str:
+    return args.output or os.path.splitext(args.input)[0] + ".mid"
+
+
 def cmd_transcribe(args) -> int:
     from aegis_tpu_torch.engine.engine import AegisEngine
 
@@ -45,9 +53,48 @@ def cmd_transcribe(args) -> int:
     if raw is None:
         print("error: empty audio", file=sys.stderr)
         return 1
-    out = args.output or os.path.splitext(args.input)[0] + ".mid"
+    out = _out_path(args)
     events = eng.extract_events(raw, out, **_extract_kwargs(args))
     print(f"{len(events)} events -> {out}")
+    return 0
+
+
+def cmd_financial(args) -> int:
+    from aegis_tpu_torch.engine.financial import AegisFinancialEngine
+
+    eng = AegisFinancialEngine(sample_rate=args.sr, device=args.device)
+    out = _out_path(args)
+    result = eng.audio_to_midi_financial(
+        args.input, out, start_time=args.start, end_time=args.end,
+        rake_sensitivity=args.rake, turbo_mode=args.turbo,
+        pitch_backend=args.pitch_backend, pitch_source=args.pitch_source,
+        **_extract_kwargs(args))
+    if result is None:
+        print("error: empty audio", file=sys.stderr)
+        return 1
+    print(f"-> {out}")
+    return 0
+
+
+def cmd_batch(args) -> int:
+    """Folder sweep: every track dispatched to the device before any fetch."""
+    from aegis_tpu_torch.engine.folder import transcribe_folder
+
+    kw = {}
+    if args.confidence is not None:
+        kw["confidence_threshold"] = args.confidence
+    if args.no_onsets:
+        kw["use_onsets"] = False
+    results = transcribe_folder(args.folder, args.output_dir,
+                                pattern=args.pattern, sample_rate=args.sr,
+                                pitch_backend=args.pitch_backend,
+                                engine=args.engine, transport=args.transport,
+                                device=args.device, **kw)
+    if not results:
+        print("no matching audio files", file=sys.stderr)
+        return 1
+    for wav, mid, n in results:
+        print(f"{wav} -> {mid} ({n} events)")
     return 0
 
 
@@ -55,35 +102,68 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="aegis_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("transcribe")
-    p.add_argument("input", help="input audio file (wav/mp3/...)")
-    p.add_argument("output", nargs="?", default=None,
-                   help="output .mid path (default: input stem + .mid)")
-    p.add_argument("--start", type=float, default=0.0)
-    p.add_argument("--end", type=float, default=None)
+    for name, fn in (("transcribe", cmd_transcribe),
+                     ("financial", cmd_financial)):
+        p = sub.add_parser(name)
+        p.add_argument("input", help="input audio file (wav/mp3/...)")
+        p.add_argument("output", nargs="?", default=None,
+                       help="output .mid path (default: input stem + .mid)")
+        p.add_argument("--start", type=float, default=0.0)
+        p.add_argument("--end", type=float, default=None)
+        p.add_argument("--confidence", type=float, default=None)
+        p.add_argument("--min-duration-ms", type=float, default=None)
+        p.add_argument("--sustain-ms", type=float, default=None)
+        p.add_argument("--bpm", default=None,
+                       help="a number, or 'auto' to estimate the tempo")
+        p.add_argument("--turbo", default="auto",
+                       choices=["off", "tiles", "stream", "auto"],
+                       help="off = the fused program, tiles = the tiled "
+                            "program, stream = bounded-memory slabs, auto = "
+                            "stream past 240 s, else fused")
+        p.add_argument("--no-onsets", action="store_true",
+                       help="disable onset-envelope event refinement "
+                            "(re-attack splitting + attack-time snap); "
+                            "matches the reference's merge/lag semantics")
+        p.add_argument("--sr", type=int,
+                       default=44100 if name == "transcribe" else 22050)
+        p.add_argument("--rake", type=float, default=0.6)
+        p.add_argument("--pitch-backend", default="pyin",
+                       choices=["pyin", "neural"],
+                       help="only pyin is ported; neural raises")
+        if name == "financial":
+            p.add_argument("--pitch-source", default="pyin",
+                           choices=["pyin", "trend"],
+                           help="series that note pitches quantize from: "
+                                "the median-smoothed pYIN f0 (default) or "
+                                "the consensus trend (the reference's v2 "
+                                "semantics)")
+        p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        p.set_defaults(fn=fn)
+
+    p = sub.add_parser("batch")
+    p.add_argument("folder")
+    p.add_argument("--output-dir", default=None)
+    p.add_argument("--pattern", default="*.wav")
+    p.add_argument("--sr", type=int, default=22050)
     p.add_argument("--confidence", type=float, default=None)
-    p.add_argument("--min-duration-ms", type=float, default=None)
-    p.add_argument("--sustain-ms", type=float, default=None)
-    p.add_argument("--bpm", default=None,
-                   help="a number, or 'auto' to estimate the tempo")
-    p.add_argument("--turbo", default="auto",
-                   choices=["off", "tiles", "stream", "auto"],
-                   help="only the fused program is ported: 'auto' runs it "
-                        "up to 240 s, 'tiles' and 'stream' raise")
     p.add_argument("--no-onsets", action="store_true",
-                   help="disable onset-envelope event refinement "
-                        "(re-attack splitting + attack-time snap); "
-                        "matches the reference's merge/lag semantics")
-    p.add_argument("--sr", type=int, default=44100)
-    p.add_argument("--rake", type=float, default=0.6)
+                   help="disable onset event refinement (the reference's "
+                        "exact merge/lag semantics)")
     p.add_argument("--pitch-backend", default="pyin",
                    choices=["pyin", "neural"],
                    help="only pyin is ported; neural raises")
+    p.add_argument("--engine", default="v1",
+                   choices=["v1", "financial", "poly", "auto"],
+                   help="pipeline per track: v1 two-phase (default) or "
+                        "financial 5-phase; poly and auto raise")
+    p.add_argument("--transport", default="int8",
+                   choices=["int8", "int16", "float32"],
+                   help="audio upload packing")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.set_defaults(fn=cmd_transcribe)
+    p.set_defaults(fn=cmd_batch)
 
     args = ap.parse_args(argv)
-    if args.end is not None and args.end <= args.start:
+    if getattr(args, "end", None) is not None and args.end <= args.start:
         ap.error(f"--end ({args.end}) must be greater than --start "
                  f"({args.start})")
     return args.fn(args)

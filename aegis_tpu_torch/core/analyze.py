@@ -1,11 +1,14 @@
-"""The v1 analyze step (PyTorch): the port's hot path.
+"""The fused analyze step (PyTorch): the port's hot path.
 
-Counterpart of the v1 part of ``aegis_tpu/core/analyze.py``:
+Counterpart of ``aegis_tpu/core/analyze.py``:
 
     y ──► frames ──► |STFT|² (matmul-DFT) ──► mel ──► dB ──► rake mask
       └─► pYIN frames ──► CMNDF ──► trough probs ──► observations ─► Viterbi
       └─► RMS
       └─► onset envelope (from the same mel)
+
+plus, for the financial engine, the guitar filters and the financial
+trend / articulation / slide / confidence stack (``financial_tail``).
 
 The host helpers (bucketing, transports, packing) are copies of the JAX
 module's, which the port cannot import because that module imports jax.
@@ -22,7 +25,7 @@ import numpy as np
 import torch
 
 from aegis_tpu.config import AudioConfig, PyinConfig
-from aegis_tpu_torch.core import dsp, masks
+from aegis_tpu_torch.core import dsp, masks, trend
 from aegis_tpu_torch.core.cqt import onset_strength_t
 from aegis_tpu_torch.core.pyin import extract_pyin_frames, pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
@@ -96,8 +99,8 @@ def analyze_program(y: torch.Tensor, rake_sensitivity: float,
                              rake_sensitivity)
 
     frames = extract_pyin_frames(y, audio.hop_length, pyin_cfg)
-    f0, voiced, probs = pyin_from_frames(frames, audio.sample_rate, pyin_cfg,
-                                         tables)
+    f0, voiced, probs = (a[0] for a in pyin_from_frames(
+        frames[None], audio.sample_rate, pyin_cfg, tables))
     rms_ = dsp.rms(y, pyin_cfg.frame_length, audio.hop_length)
     return {
         "mel_db": mel_db,
@@ -110,30 +113,165 @@ def analyze_program(y: torch.Tensor, rake_sensitivity: float,
     }
 
 
+def financial_tail(base: Dict[str, torch.Tensor], audio: AudioConfig,
+                   use_guitar_filters: bool = True) -> Dict[str, torch.Tensor]:
+    """Phases 3.5-4a on top of a base analysis dict with {f0, voiced_flag,
+    voiced_probs, rake_mask, mel_db}: the guitar-specific filters plus the
+    financial trend / articulation / slide / confidence stack."""
+    f0, voiced, rake = base["f0"], base["voiced_flag"], base["rake_mask"]
+    mel_db = base["mel_db"]
+
+    if use_guitar_filters:
+        f0, voiced = masks.filter_subharmonic(f0, voiced, fmin_hz=82.4)
+        rake = masks.enhance_rake(mel_db, audio.hop_length, audio.sample_rate,
+                                  rake)
+        mute = masks.detect_palm_mute(mel_db, audio.hop_length,
+                                      audio.sample_rate)
+        voiced = voiced & ~mute
+        dist = masks.distortion_score(mel_db)
+    else:
+        mute = torch.zeros_like(rake)
+        dist = torch.zeros((), dtype=torch.float32, device=f0.device)
+
+    f0_clean = torch.where(voiced, f0, float("nan"))
+    with torch.profiler.record_function("aegis.trend"):
+        fin = trend.analyze_pitch_financial(f0_clean)
+        combined_conf = base["voiced_probs"] * 0.5 + fin["confidence"] * 0.5
+        adaptive_thr = trend.adaptive_confidence_threshold(combined_conf)
+    return {
+        **base,
+        "f0": f0,
+        "voiced_flag": voiced,
+        "rake_mask": rake,
+        "mute_mask": mute,
+        "distortion_score": dist,
+        "trend": fin["trend"],
+        "artic_codes": fin["articulations"],
+        "slide_codes": fin["slides"],
+        "financial_confidence": fin["confidence"],
+        "combined_confidence": combined_conf,
+        "adaptive_threshold": adaptive_thr,
+    }
+
+
+def analyze_financial_program(y: torch.Tensor, rake_sensitivity: float,
+                              audio: AudioConfig, pyin_cfg: PyinConfig,
+                              tables: Tables, use_guitar_filters: bool = True
+                              ) -> Dict[str, torch.Tensor]:
+    """v2 pipeline phases 1-4a: mel / rake / pYIN / RMS plus the guitar
+    filters and the financial trend, articulation, slide and confidence
+    analysis."""
+    base = analyze_program(y, rake_sensitivity, audio, pyin_cfg, tables)
+    return financial_tail(base, audio, use_guitar_filters)
+
+
 # Per-frame output rows packed beside mel_db into ONE buffer, so the
-# device->host fetch is a single copy.
+# device->host fetch is a single copy.  Per-track scalars ride along
+# broadcast to (T,).
 _V1_ROWS = ("f0", "voiced_flag", "voiced_probs", "rms", "rake_mask",
             "onset_env")
-_BOOL_ROWS = {"voiced_flag", "rake_mask"}
+_FIN_ROWS = _V1_ROWS + (
+    "mute_mask", "trend", "artic_codes", "slide_codes",
+    "financial_confidence", "combined_confidence",
+    "adaptive_threshold", "distortion_score",
+)
+# streamed-slab rows: the financial per-tile (local) outputs without the
+# whole-track trend stack, which run_analyze_streamed computes afterwards in
+# one small full-track pass (engine.turbo)
+_GTR_ROWS = _V1_ROWS + ("mute_mask", "dist_high_sum", "dist_total_sum")
+_BOOL_ROWS = {"voiced_flag", "rake_mask", "mute_mask"}
+_INT_ROWS = {"artic_codes": np.int8, "slide_codes": np.int8}
 
 
 def _pack(out: Dict[str, torch.Tensor], rows, include_mel: bool) -> torch.Tensor:
-    cols = [out[k].to(torch.float32)[:, None] for k in rows]
+    T = out["f0"].shape[0]
+    cols = [torch.broadcast_to(out[k].to(torch.float32), (T,))[:, None]
+            for k in rows]
     head = [out["mel_db"]] if include_mel else []
     return torch.cat(head + cols, dim=1)
 
 
 def _unpack(buf: np.ndarray, rows, n_mels: int) -> Dict[str, np.ndarray]:
-    """Packed buffer (T, n_mels + len(rows)) -> named arrays."""
+    """Packed buffer (..., n_mels + len(rows)) -> named arrays, for the
+    single-track (T, C) layout and the batch (B, T, C) layout alike."""
     result: Dict[str, np.ndarray] = (
         {"mel_db": buf[..., :n_mels]} if n_mels else {})
     for i, k in enumerate(rows):
         col = buf[..., n_mels + i]
         if k in _BOOL_ROWS:
             result[k] = col > 0.5
+        elif k in _INT_ROWS:
+            result[k] = col.astype(_INT_ROWS[k])
+        elif k in ("adaptive_threshold", "distortion_score"):
+            # per-track scalar: (B,) in the batch layout, float in the
+            # single-track layout
+            result[k] = (col[:, 0].astype(np.float32) if col.ndim == 2
+                         else np.float32(col.reshape(-1)[0]))
         else:
             result[k] = col.astype(np.float64) if k == "f0" else col
     return result
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> ``device`` without blocking the host: a CUDA upload
+    goes through pinned memory as an async copy on the current stream (a
+    pageable copy would wait for the work already queued)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def dispatch_analyze(
+    y: np.ndarray,
+    audio: AudioConfig,
+    pyin_cfg: PyinConfig,
+    rake_sensitivity: float = 0.6,
+    financial: bool = False,
+    use_guitar_filters: bool = True,
+    fetch_mel: bool = True,
+    transport: str = "int8",
+    device="cpu",
+):
+    """Async half of run_analyze: bucket-pad, quantize, upload, queue the
+    analyze step on ``device`` and return an opaque handle WITHOUT waiting
+    for the device (no ``.item()``, no ``.cpu()``), so several tracks can be
+    in flight before any fetch.  Resolve with fetch_analyze(handle).  The
+    first call for a new length or config builds its constant tables,
+    which uploads them once."""
+    device = torch.device(device)
+    true_frames = audio.n_frames(len(y))
+    y_pad = pad_to_bucket(np.asarray(y, np.float32))
+    if transport == "int8":
+        y8, s8 = quantize_pcm8(y_pad)
+        y_dev, scale = upload(y8, device), upload(s8, device)
+    elif transport == "int16":
+        y16, s = quantize_pcm16(y_pad)
+        y_dev = upload(y16, device)
+        scale = torch.full((), s, dtype=torch.float32, device=device)
+    elif transport == "float32":
+        y_dev = upload(y_pad, device)
+        scale = torch.ones((), dtype=torch.float32, device=device)
+    else:
+        raise ValueError(f"unknown transport {transport!r} "
+                         "(int8 | int16 | float32)")
+    tables = tables_from_numpy(audio, pyin_cfg, device)
+    y_f = dequant_transport(y_dev, scale)
+    if financial:
+        out = analyze_financial_program(y_f, rake_sensitivity, audio, pyin_cfg,
+                                        tables, use_guitar_filters)
+        rows = _FIN_ROWS
+    else:
+        out = analyze_program(y_f, rake_sensitivity, audio, pyin_cfg, tables)
+        rows = _V1_ROWS
+    return (_pack(out, rows, fetch_mel), rows, true_frames,
+            audio.n_mels if fetch_mel else 0)
+
+
+def fetch_analyze(handle) -> Dict[str, np.ndarray]:
+    """Blocking half: copy the packed buffer to the host and unpack it."""
+    packed, rows, true_frames, n_mels = handle
+    return _unpack(packed[:true_frames].cpu().numpy(), rows, n_mels)
 
 
 def run_analyze(
@@ -141,6 +279,8 @@ def run_analyze(
     audio: AudioConfig,
     pyin_cfg: PyinConfig,
     rake_sensitivity: float = 0.6,
+    financial: bool = False,
+    use_guitar_filters: bool = True,
     fetch_mel: bool = True,
     transport: str = "int8",
     device="cpu",
@@ -149,28 +289,9 @@ def run_analyze(
     step on ``device``, fetch the single packed buffer, truncate to the
     true frame count, return NumPy arrays.
 
-    transport: "int8" (default, block-floating-point 8-bit PCM), "int16"
-    (peak-scaled) or "float32" (bit-exact ingest)."""
-    device = torch.device(device)
-    true_frames = audio.n_frames(len(y))
-    y_pad = pad_to_bucket(np.asarray(y, np.float32))
-    if transport == "int8":
-        y8, s8 = quantize_pcm8(y_pad)
-        y_dev = torch.from_numpy(y8).to(device)
-        scale = torch.from_numpy(s8).to(device)
-    elif transport == "int16":
-        y16, s = quantize_pcm16(y_pad)
-        y_dev = torch.from_numpy(y16).to(device)
-        scale = torch.tensor(s, dtype=torch.float32, device=device)
-    elif transport == "float32":
-        y_dev = torch.from_numpy(y_pad).to(device)
-        scale = torch.tensor(1.0, dtype=torch.float32, device=device)
-    else:
-        raise ValueError(f"unknown transport {transport!r} "
-                         "(int8 | int16 | float32)")
-    tables = tables_from_numpy(audio, pyin_cfg, device)
-    out = analyze_program(dequant_transport(y_dev, scale), rake_sensitivity,
-                          audio, pyin_cfg, tables)
-    packed = _pack(out, _V1_ROWS, fetch_mel)
-    n_mels = audio.n_mels if fetch_mel else 0
-    return _unpack(packed[:true_frames].cpu().numpy(), _V1_ROWS, n_mels)
+    financial=True adds the guitar filters and the financial rows
+    (_FIN_ROWS).  transport: "int8" (default, block-floating-point 8-bit
+    PCM), "int16" (peak-scaled) or "float32" (bit-exact ingest)."""
+    return fetch_analyze(dispatch_analyze(
+        y, audio, pyin_cfg, rake_sensitivity, financial, use_guitar_filters,
+        fetch_mel, transport, device))

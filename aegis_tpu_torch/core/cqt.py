@@ -16,13 +16,14 @@ from aegis_tpu_torch.core import dsp
 
 
 def onset_from_db(mel_db_t: torch.Tensor, lag: int = 1) -> torch.Tensor:
-    """Spectral-flux onset envelope from a time-major dB mel spectrogram:
-    lagged first difference, half-wave rectified, mean over bands; the
-    first `lag` frames are zero.  Shape (T,)."""
-    diff = mel_db_t[lag:] - mel_db_t[:-lag]
-    flux = torch.mean(torch.clamp_min(diff, 0.0), dim=1)
-    return torch.cat([torch.zeros(lag, dtype=flux.dtype, device=flux.device),
-                      flux])
+    """Spectral-flux onset envelope from a time-major dB mel spectrogram
+    (..., T, n_mels): lagged first difference, half-wave rectified, mean
+    over bands; the first `lag` frames are zero.  Shape (..., T)."""
+    diff = mel_db_t[..., lag:, :] - mel_db_t[..., :-lag, :]
+    flux = torch.mean(torch.clamp_min(diff, 0.0), dim=-1)
+    head = torch.zeros(flux.shape[:-1] + (lag,), dtype=flux.dtype,
+                       device=flux.device)
+    return torch.cat([head, flux], dim=-1)
 
 
 def onset_strength_t(mel_power_t: torch.Tensor, lag: int = 1) -> torch.Tensor:

@@ -1,15 +1,16 @@
-"""Frame data → note events (host side), the v1 extractor.
+"""Frame data → note events (host side), the v1 and financial extractors.
 
-``extract_events_v1`` and ``apply_onset_refinement`` are copies of
-``aegis_tpu/core/events.py``'s, with one change: the onset helpers come
-from this package's ``core/cqt.py`` (NumPy copies), because the original
-pulls ``pick_onsets`` from ``aegis_tpu/core/cqt.py``, which imports jax.
-Every other helper is imported from ``aegis_tpu.core.events`` as it is.
+``extract_events_v1``, ``apply_onset_refinement`` and
+``extract_events_financial`` are copies of ``aegis_tpu/core/events.py``'s,
+with one change: the onset helpers come from this package's
+``core/cqt.py`` (NumPy copies), because the original pulls ``pick_onsets``
+from ``aegis_tpu/core/cqt.py``, which imports jax.  Every other helper is
+imported from ``aegis_tpu.core.events`` as it is.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 from scipy.signal import medfilt
@@ -17,15 +18,19 @@ from scipy.signal import medfilt
 from aegis_tpu.core.events import (
     PYIN_LAG_MS,
     SPLIT_MIN_RISE_DB,
+    _TECHNIQUE_CODES,
     _build_events,
     _hammer_pull_pairs,
     _segment,
     _sustain_merge,
+    apply_harmonic_context,
     detect_articulations_v1,
     drop_harmonic_tail_ghosts,
+    filter_ghost_notes_rsi,
     snap_starts_to_onsets,
     velocity_from_db,
 )
+from aegis_tpu.ref import trend_ref
 from aegis_tpu.ref.dsp_ref import amplitude_to_db, hz_to_midi
 from aegis_tpu_torch.core.cqt import pick_onsets, split_events_at_onsets
 
@@ -209,3 +214,121 @@ def apply_onset_refinement(
                                            hop_length,
                                            min_rise_db=split_min_rise_db)
     return events
+
+
+def extract_events_financial(
+    rake_mask: np.ndarray,
+    f0: np.ndarray,  # NaN on unvoiced
+    voiced_flag: np.ndarray,
+    active_probs: np.ndarray,
+    rms: np.ndarray,
+    sr: int,
+    hop_length: int,
+    *,
+    trend: np.ndarray,
+    artic_codes: np.ndarray,
+    slide_codes: np.ndarray,
+    financial_confidence: np.ndarray,
+    confidence_threshold: Optional[float] = None,
+    noise_gate_db: float = -40.0,
+    sustain_ms: float = 50.0,
+    min_note_duration_ms: float = 50.0,
+    use_harmonic_filter: bool = True,
+    harmonic_tolerance: int = 1,
+    rsi_threshold: float = 70.0,
+    onset_env: Optional[np.ndarray] = None,
+    onset_snap_ms: float = 140.0,
+    onset_fwd_snap_ms: float = 0.0,
+    pitch_source: str = "pyin",
+    onsets: Optional[np.ndarray] = None,
+    ghost_rsi: bool = True,
+    rms_ref: Optional[float] = None,
+    rms_floor_db: Optional[float] = None,
+) -> Tuple[List[dict], dict]:
+    """v2 event extraction from the financial analysis rows.
+
+    Returns (events, info) where info carries {threshold, key_info}.
+    onset_env enables the same onset refinement as the v1 path
+    (apply_onset_refinement), applied after the sustain merge so the RSI
+    ghost and harmonic filters see the refined events.
+
+    pitch_source selects the series note pitches quantize from: "pyin"
+    (default), the median-smoothed pYIN f0 as in the v1 extractor, or
+    "trend", the consensus-filtered trend (the reference's v2 semantics,
+    which smooths across note boundaries; see aegis_tpu/core/events.py).
+    """
+    T = min(len(rake_mask), len(f0), len(rms), len(voiced_flag), len(active_probs))
+    arrays = [rake_mask, f0, voiced_flag, active_probs, rms, trend, artic_codes,
+              slide_codes, financial_confidence]
+    (rake_mask, f0, voiced_flag, active_probs, rms, trend, artic_codes,
+     slide_codes, financial_confidence) = (a[:T] for a in arrays)
+
+    # track-referenced dB plane (see extract_events_v1's note)
+    rms_db = amplitude_to_db(rms, ref=rms_ref)
+    if rms_ref is not None and rms_floor_db is not None:
+        rms_db = np.maximum(rms_db, np.float32(rms_floor_db))
+    combined_conf = active_probs * 0.5 + financial_confidence * 0.5
+
+    if confidence_threshold is None:
+        confidence_threshold = trend_ref.adaptive_confidence_threshold(combined_conf)
+
+    min_frames = int((min_note_duration_ms / 1000.0) * sr / hop_length)
+    sustain_frames = int((sustain_ms / 1000.0) * sr / hop_length)
+
+    if pitch_source == "pyin":
+        freq = np.asarray(
+            medfilt(np.nan_to_num(f0), kernel_size=3) if T >= 3
+            else np.nan_to_num(f0), dtype=np.float64)
+    else:
+        freq = np.asarray(trend, dtype=np.float64)
+    finite = np.isfinite(freq)
+    active = (
+        voiced_flag.astype(bool)
+        & finite
+        & (np.nan_to_num(freq) > 0)
+        & (rms_db >= noise_gate_db)
+        & ~rake_mask.astype(bool)
+    )
+    with np.errstate(divide="ignore", invalid="ignore"):
+        notes = np.where(active, np.round(hz_to_midi(np.where(finite, freq, 1.0))), -1)
+    velocity = velocity_from_db(rms_db)
+
+    starts, ends = _segment(active, notes)
+    events = _build_events(
+        starts, ends, notes, combined_conf, velocity, rms_db, confidence_threshold
+    )
+
+    # per-segment articulation: last non-normal code; else first-frame code
+    codes = np.asarray(artic_codes)
+    for evt, s, e in zip(events, starts, ends):
+        seg = codes[s : e + 1]
+        special = np.where((seg >= 2) & (seg <= 4))[0]
+        code = int(seg[special[-1]]) if len(special) else int(seg[0])
+        evt["financial_artic"] = trend_ref.ARTIC_NAMES.get(code)
+        evt["financial_slide"] = trend_ref.SLIDE_NAMES.get(int(slide_codes[s]))
+        evt["technique"] = _TECHNIQUE_CODES.get(code)
+
+    events = [e for e in events if (e["end"] - e["start"]) >= min_frames]
+    events = _sustain_merge(events, sustain_frames)
+
+    if onset_env is not None:
+        events = apply_onset_refinement(events, onset_env[:T], velocity,
+                                        rms_db, sr, hop_length, min_frames,
+                                        onset_snap_ms,
+                                        snap_fwd_ms=onset_fwd_snap_ms,
+                                        onsets=onsets)
+
+    # ghost_rsi=False defers the density-RSI pass to the caller: the RSI
+    # recurrence runs from bin 0 over the WHOLE track's note density, so a
+    # windowed caller must apply it globally over the spliced event list
+    if ghost_rsi and len(events) > 10:
+        events = filter_ghost_notes_rsi(events, sr, hop_length, rsi_threshold)
+
+    key_info = None
+    if use_harmonic_filter and len(events) > 5:
+        events, key_info = apply_harmonic_context(
+            events, sr, hop_length, confidence_threshold,
+            harmonic_tolerance)
+
+    info = {"threshold": float(confidence_threshold), "key_info": key_info}
+    return events, info

@@ -5,6 +5,11 @@ CMNDF, parabolic shifts, trough mask, the 100-threshold Beta/Boltzmann
 trough probabilities, the scatter into 0.1-semitone pitch bins, and the
 Viterbi decode — on a CUDA tensor the hand kernels of ``pyin_cuda``, on a
 CPU tensor their plain versions.
+
+The entry points take a leading batch of N sequences (one track, or the N
+haloed tiles of the tiled program).  Every stage before the decode works
+per frame, so it runs over the N*T frames flattened into one row batch;
+only the decode sees (N, T, n_bins), as ONE launch of each kernel.
 """
 
 from __future__ import annotations
@@ -132,7 +137,7 @@ def viterbi_decode(obs: torch.Tensor, voiced_prob: torch.Tensor,
     transition: states[t] in [0, 2n).  The signature and every step of
     aegis_tpu/core/pyin.py::viterbi_decode."""
     psi_v, psi_u, delta_last = pyin_cuda.viterbi_fwd_plain(
-        *decode_inputs(obs, voiced_prob), log_local,
+        *decode_inputs(obs[None], voiced_prob[None]), log_local,
         float(np.log1p(-switch_prob)), float(np.log(switch_prob)))
     return pyin_cuda.viterbi_back_plain(delta_last, psi_v, psi_u)[0]
 
@@ -143,44 +148,51 @@ def viterbi_decode(obs: torch.Tensor, voiced_prob: torch.Tensor,
 
 def decode_inputs(obs: torch.Tensor, voiced_prob: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decode's log observations as a batch of one: voiced (1, T, n)
-    and unvoiced (1, T), the latter uniform over the n unvoiced states."""
+    """The decode's log observations of N sequences: voiced (N, T, n) from
+    obs (N, T, n), and unvoiced (N, T), uniform over the n unvoiced
+    states."""
     n = obs.shape[-1]
     log_obs_v = torch.log(obs + EPS)
     log_obs_u = torch.log((1.0 - voiced_prob) / n + EPS)
-    return log_obs_v[None].contiguous(), log_obs_u[None].contiguous()
+    return log_obs_v.contiguous(), log_obs_u.contiguous()
 
 
 def _decode_states(obs: torch.Tensor, voiced_prob: torch.Tensor,
                    tables: Tables, cfg: PyinConfig) -> torch.Tensor:
-    """Viterbi decode: the CUDA kernels on a CUDA tensor, their plain
-    versions on a CPU tensor.  Any width w and length T; a shape the
-    kernels cannot take raises."""
-    states = pyin_cuda.viterbi_decode_cuda(
+    """Viterbi decode of N sequences, obs (N, T, n) -> states (N, T): the
+    CUDA kernels on a CUDA tensor (one launch each, one CTA a sequence),
+    their plain versions on a CPU tensor.  Any width w and length T; a
+    shape the kernels cannot take raises."""
+    return pyin_cuda.viterbi_decode_cuda(
         *decode_inputs(obs, voiced_prob), tables.band, cfg.n_pitch_bins,
         tables.half_width, float(np.log1p(-cfg.switch_prob)),
         float(np.log(cfg.switch_prob)))
-    return states[0]
 
 
 def frame_observations(frames: torch.Tensor, sr: int, cfg: PyinConfig,
                        tables: Tables) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The stages before the decode: frames (T, frame_length) ->
-    observations (T, n_bins) and voiced probabilities (T,)."""
+    """The stages before the decode: frames (..., frame_length) ->
+    observations (..., n_bins) and voiced probabilities (...), every
+    frame of every sequence as one row batch."""
+    lead = frames.shape[:-1]
     min_p, max_p = cfg.min_period(sr), cfg.max_period(sr)
-    yin = cmndf_frames(frames.to(torch.float32), cfg.win_length, min_p, max_p)
+    yin = cmndf_frames(frames.reshape(-1, frames.shape[-1]).to(torch.float32),
+                       cfg.win_length, min_p, max_p)
     shifts = parabolic_shifts(yin)
     mask = trough_mask(yin)
     probs = trough_probabilities(yin, mask, cfg, tables)
-    return observations(probs, shifts, sr, min_p, cfg)
+    obs, voiced_prob = observations(probs, shifts, sr, min_p, cfg)
+    return obs.reshape(lead + obs.shape[-1:]), voiced_prob.reshape(lead)
 
 
 def pyin_from_frames(frames: torch.Tensor, sr: int, cfg: PyinConfig,
                      tables: Tables
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """pYIN core over pre-extracted frames (T, frame_length).
+    """pYIN core over pre-extracted frames (N, T, frame_length) of N
+    sequences.
 
-    Returns (f0, voiced_flag, voiced_prob); f0 is NaN on unvoiced frames.
+    Returns (f0, voiced_flag, voiced_prob), each (N, T); f0 is NaN on
+    unvoiced frames.
     """
     obs, voiced_prob = frame_observations(frames, sr, cfg, tables)
     states = _decode_states(obs, voiced_prob, tables, cfg)
@@ -209,4 +221,4 @@ def pyin(y, sr: int, hop_length: int = 512, cfg: PyinConfig | None = None,
                     n_fft=cfg.frame_length), cfg, device)
     y_t = torch.as_tensor(np.asarray(y, np.float32), device=device)
     frames = extract_pyin_frames(y_t, hop_length, cfg)
-    return pyin_from_frames(frames, sr, cfg, tables)
+    return tuple(a[0] for a in pyin_from_frames(frames[None], sr, cfg, tables))

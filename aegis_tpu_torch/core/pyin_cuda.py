@@ -7,8 +7,9 @@ Kernels (``aegis_tpu_torch/csrc/viterbi.cu``, CUDA C++ for sm_90a):
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no fallback between the two.  Each
-kernel launch adds one to ``LAUNCHES[name]``, so a run can show that it
-went through the kernels.
+kernel launch adds one to ``LAUNCHES[name]`` and records its batch size B
+in ``LAST_BATCH[name]``, so a run can show that it went through the
+kernels, and with how many sequences.
 
 The library is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
 under the repository root, keyed by a hash of the source and the flags,
@@ -37,6 +38,7 @@ import torch
 from aegis_tpu_torch.core.tables import LOG_FLOOR
 
 LAUNCHES = {"viterbi_fwd": 0, "viterbi_back": 0}
+LAST_BATCH = {"viterbi_fwd": 0, "viterbi_back": 0}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "viterbi.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aegis_tpu_torch"
@@ -225,6 +227,7 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
             log_stay, log_switch, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "viterbi_fwd")
     LAUNCHES["viterbi_fwd"] += 1
+    LAST_BATCH["viterbi_fwd"] = B
     return psi_v, psi_u, delta_last
 
 
@@ -254,6 +257,7 @@ def viterbi_back(delta_last: torch.Tensor, psi_v: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "viterbi_back")
     LAUNCHES["viterbi_back"] += 1
+    LAST_BATCH["viterbi_back"] = B
     return states
 
 

@@ -1,14 +1,17 @@
-"""Constant tables of the v1 analyze path, built once per (config, device).
+"""Constant tables of the analyze path, built once per (config, device).
 
 Every table comes from the same NumPy builder the JAX package calls
-(``aegis_tpu/core/filters.py`` and ``aegis_tpu/ref/pyin_ref.py``) in
-float32, so both packages compute from bit-identical constants.
+(``aegis_tpu/core/filters.py``, ``aegis_tpu/ref/pyin_ref.py`` and, for the
+financial trend stack, ``aegis_tpu/ref/trend_ref.py`` and the Kalman gain
+recurrence of ``aegis_tpu/core/trend.py``) in float32, so both packages
+compute from bit-identical constants.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ import torch
 from aegis_tpu.config import AudioConfig, PyinConfig
 from aegis_tpu.core.filters import dft_matrices, hann_window, mel_filterbank
 from aegis_tpu.ref.pyin_ref import beta_threshold_probs, local_transition
+from aegis_tpu.ref.trend_ref import _savgol_kernel
 
 # log(0 + 1e-30): the dense decode's out-of-band transition score
 # (aegis_tpu/core/pyin.py applies log(trans + 1e-30) to the whole matrix)
@@ -60,6 +64,34 @@ def bin_frequencies(cfg: PyinConfig) -> torch.Tensor:
     across it)."""
     b = torch.arange(cfg.n_pitch_bins, dtype=torch.float32)
     return cfg.fmin * 2.0 ** (b * (1.0 / (12.0 * cfg.n_bins_per_semitone)))
+
+
+@functools.lru_cache(maxsize=8)
+def savgol_taps(window: int, polyorder: int) -> Tuple[float, ...]:
+    """Savitzky-Golay correlation taps, float32-rounded, from the JAX
+    package's ``trend_ref._savgol_kernel``.  Host floats: the
+    filter is a shifted sum, so each tap is a scalar multiplier."""
+    return tuple(float(c) for c in
+                 _savgol_kernel(window, polyorder).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=16)
+def kalman_gain_table(T: int, process_variance: float,
+                      measurement_variance: float,
+                      device: torch.device) -> torch.Tensor:
+    """(T + 1,) float32 Kalman gains k[j] of the j-th valid sample (k[0]
+    unused), the recurrence of aegis_tpu/core/trend.py::kalman line for
+    line: the error covariance advances only on valid samples and never
+    depends on their values.  A host loop of T steps, so it is cached per
+    length."""
+    ks = np.empty(T + 1, np.float32)
+    ks[0] = 0.0  # unused (j is 1-indexed over valid samples)
+    p = 1.0
+    for j in range(1, T + 1):
+        p_pred = p + process_variance
+        ks[j] = p_pred / (p_pred + measurement_variance)
+        p = (1.0 - ks[j]) * p_pred
+    return torch.from_numpy(ks).to(device)
 
 
 @functools.lru_cache(maxsize=8)

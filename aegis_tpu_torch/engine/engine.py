@@ -1,10 +1,13 @@
 """AegisEngine — the v1 two-phase engine facade (PyTorch).
 
-Counterpart of ``aegis_tpu/engine/engine.py``, fused pYIN path only:
+Counterpart of ``aegis_tpu/engine/engine.py`` with the pYIN backend:
 
   * ``audio_to_midi(input_wav, output_mid=None, **kw) -> raw_data`` — the
-    cacheable Perception Phase, one ``core.analyze.run_analyze`` on the
-    engine's device;
+    cacheable Perception Phase on the engine's device: the fused program
+    (``core.analyze.run_analyze``), the tiled program
+    (``engine.turbo.run_analyze_turbo``) or bounded-memory slabs
+    (``engine.turbo.run_analyze_streamed``), chosen by ``turbo_mode``
+    through the JAX package's ``normalize_turbo_mode``;
   * ``extract_events(raw_data, output_mid, **kw) -> events`` — the
     re-runnable event extraction and MIDI encode.
 
@@ -12,8 +15,8 @@ raw_data keeps the JAX engine's schema: {rake_mask, f0, voiced_flag,
 voiced_probs, rms, y, onset_env, mel_db, pitch_backend}, f0 zero-filled on
 unvoiced frames.
 
-There is no fallback: a device failure raises, and the tiled/streamed
-turbo modes and the neural pitch backend raise NotImplementedError.
+There is no fallback: a device failure raises, and the neural pitch
+backend raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,30 +27,35 @@ import numpy as np
 import torch
 
 from aegis_tpu.config import AudioConfig, PyinConfig
+from aegis_tpu.engine.engine import normalize_turbo_mode
 from aegis_tpu.io.audio import load_audio as _load_audio
 from aegis_tpu.midi.encode import events_to_midi
 from aegis_tpu.utils.logging import get_logger
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core.analyze import run_analyze
 from aegis_tpu_torch.core.events import extract_events_v1
+from aegis_tpu_torch.engine.turbo import (run_analyze_streamed,
+                                          run_analyze_turbo)
 
 log = get_logger("Aegis")
 
 
-def _require_fused(mode, n_samples: int, sample_rate: int,
-                   stream_threshold_s: float = 240.0) -> None:
-    """The JAX engine's turbo vocabulary (normalize_turbo_mode), of which
-    only the fused single program is ported: False | None | "" | "off",
-    and "auto" up to stream_threshold_s, pass; the tiled and streamed
-    modes raise NotImplementedError; unknown values raise ValueError."""
-    if mode in (False, None, "", "off"):
-        return
-    if mode == "auto" and n_samples / sample_rate <= stream_threshold_s:
-        return
-    if mode in (True, "tiles", "turbo", "stream", "auto"):
-        raise NotImplementedError(
-            f"turbo_mode={mode!r}: only the fused program is ported")
-    raise ValueError(f"unknown turbo mode: {mode!r}")
+def analyze_pyin(y: np.ndarray, audio: AudioConfig, pyin_cfg: PyinConfig,
+                 rake_sensitivity: float, turbo, turbo_config, fetch_mel: bool,
+                 device, financial: bool = False,
+                 use_guitar_filters: bool = True) -> Dict[str, np.ndarray]:
+    """The Perception Phase of both facades, by normalized turbo mode:
+    False = the fused program, "tiles" = the tiled program, "stream" =
+    bounded-memory slabs."""
+    kw = dict(fetch_mel=fetch_mel, financial=financial,
+              use_guitar_filters=use_guitar_filters, device=device)
+    if turbo == "stream":
+        return run_analyze_streamed(y, audio, pyin_cfg, rake_sensitivity,
+                                    turbo=turbo_config, **kw)
+    if turbo:
+        return run_analyze_turbo(y, audio, pyin_cfg, rake_sensitivity,
+                                 turbo=turbo_config, **kw)
+    return run_analyze(y, audio, pyin_cfg, rake_sensitivity, **kw)
 
 
 class AegisEngine:
@@ -89,14 +97,16 @@ class AegisEngine:
                                duration=duration)
         if len(y) == 0:
             return None
-        _require_fused(kwargs.get("turbo_mode", False), len(y), self.sr,
-                       kwargs.get("stream_threshold_s", 240.0))
+        turbo_mode = normalize_turbo_mode(
+            kwargs.get("turbo_mode", False), len(y), self.sr,
+            kwargs.get("stream_threshold_s", 240.0))
 
-        log.info(f"Perception Phase ({self.device}, {len(y)/self.sr:.1f}s)")
+        log.info(f"Perception Phase ({self.device}, turbo={turbo_mode}, "
+                 f"{len(y)/self.sr:.1f}s)")
         with torch.profiler.record_function("aegis.perception"):
-            out = run_analyze(y, self.audio, self.pyin_cfg, rake_sensitivity,
-                              fetch_mel=kwargs.get("fetch_mel", True),
-                              device=self.device)
+            out = analyze_pyin(y, self.audio, self.pyin_cfg, rake_sensitivity,
+                               turbo_mode, kwargs.get("turbo_config"),
+                               kwargs.get("fetch_mel", True), self.device)
 
         raw = {
             "rake_mask": np.asarray(out["rake_mask"]),

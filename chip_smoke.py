@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the v1 WAV -> MIDI transcription
-(``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), and
-its CUDA kernels, in five phases; each raises on failure:
+Drives the port's main paths, the v1 WAV -> MIDI transcription
+(``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), the
+financial (v2) engine, the tiled, streamed and folder-batch modes, and the
+CUDA kernels, in ten phases; each raises on failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -24,32 +25,65 @@ its CUDA kernels, in five phases; each raises on failure:
   5. times   — warm medians of 5 (CUDA events): audio_to_midi on each 60 s
                track, and each kernel against its plain version at the
                slice's shapes; a torch.profiler breakdown of one run.
+  6. financial — AegisFinancialEngine on the 60 s bench track at 22 050 Hz
+               and the Karplus-Strong track at 44 100 Hz: one launch per
+               kernel per clip, note-event F1 >= 0.99 against the CPU
+               engine, truth F1 >= 0.99 on the bench track.
+  7. tiles   — v1 and financial with turbo_mode="tiles" on both 60 s
+               tracks: one launch per kernel per call at B = n_tiles, the
+               kernels equal to their plain versions on the real tile
+               observations, F1 >= 0.99 against the fused engine.
+  8. batch   — transcribe_folder over four 60 s bench tracks (seeds 42-45)
+               as WAVs, v1 and financial: one launch per kernel per track,
+               MIDI equal to the per-track facade's; the synchronizing
+               calls of dispatch_analyze (torch's sync debug mode), printed;
+               run_analyze_batch on the same tracks: one launch per kernel
+               at B = 4 * n_tiles, per-track scalar rows of shape (4,).
+  9. stream  — the 10-minute bench track, v1 and financial, default slabs
+               (26 tiles in 2 slabs of 16): two launches per kernel, truth
+               F1 >= 0.99, event F1 = 1.0 against tiles with the int16
+               transport; prints whether the pYIN rows are bit-identical.
+ 10. times   — warm medians of 5 (CUDA events): the financial engine on
+               60 s, v1 tiles on 60 s, the four-track folder, the 10-minute
+               stream, the kernels at B = n_tiles against their plain
+               versions; a torch.profiler breakdown of the financial run
+               with the trend stack's device time apart.
 
-Prints one JSON object per result, then the kernels line, then as the last
-line {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
-when torch.cuda.is_available() is False or the package is missing.
+Prints one JSON object per result and each phase's seconds, then the
+kernels line, then as the last line {"ok": true, "device": {...}}.  Exits
+non-zero, printing no result, when torch.cuda.is_available() is False or
+the package is missing.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from aegis_tpu_torch import resolve_device
-from aegis_tpu_torch.config import AudioConfig, PyinConfig
+from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core import pyin as tpyin
 from aegis_tpu_torch.core import pyin_cuda
-from aegis_tpu_torch.core.analyze import (dequant_transport, pad_to_bucket,
+from aegis_tpu_torch.core.analyze import (dequant_transport, dispatch_analyze,
+                                          fetch_analyze, pad_to_bucket,
                                           quantize_pcm8)
 from aegis_tpu_torch.core.tables import tables_from_numpy
+from aegis_tpu_torch.engine import turbo as tturbo
 from aegis_tpu_torch.engine.engine import AegisEngine
+from aegis_tpu_torch.engine.financial import AegisFinancialEngine
+from aegis_tpu_torch.engine.folder import transcribe_folder
+from aegis_tpu_torch.io import write_wav
+from aegis_tpu_torch.midi import midi_to_notes
 from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
                                               generate_test_track,
                                               wandering_pitch_obs)
@@ -161,8 +195,8 @@ def phase_kernels(dev, tracks, errs) -> dict:
     for w, T, seed, sr in ((101, 2625, 11, 22050), (51, 5249, 21, 44100)):
         obs, vprob = wandering_pitch_obs(T, n, seed, 200, 8,
                                          (-2, -1, 0, 1, 2), True)
-        lo_v, lo_u = tpyin.decode_inputs(torch.from_numpy(obs).to(dev),
-                                         torch.from_numpy(vprob).to(dev))
+        lo_v, lo_u = tpyin.decode_inputs(torch.from_numpy(obs[None]).to(dev),
+                                         torch.from_numpy(vprob[None]).to(dev))
         tables = tables_from_numpy(AudioConfig(sample_rate=sr), CFG, dev)
         if tables.half_width != w:
             raise AssertionError(f"half-width {tables.half_width} != {w}")
@@ -171,7 +205,7 @@ def phase_kernels(dev, tracks, errs) -> dict:
     shapes = {}
     for sr, (y, _) in tracks.items():
         obs, vprob, tables = real_obs(y, sr, dev)
-        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
         compare_kernels(f"bench60_{sr}", lo_v, lo_u, tables.band,
                         tables.half_width, 1.0, errs)
         shapes[sr] = (obs, vprob, tables)
@@ -248,7 +282,7 @@ def phase_times(dev, tracks, shapes) -> dict:
     kernel_ms = {}
     for sr, (obs, vprob, tables) in shapes.items():
         n, w, band = CFG.n_pitch_bins, tables.half_width, tables.band
-        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
         dense = pyin_cuda.dense_from_band(band, n, w)
         psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
                                                      LOG_STAY, LOG_SWITCH)
@@ -301,21 +335,377 @@ def phase_times(dev, tracks, shapes) -> dict:
     return kernel_ms
 
 
+def run_counted(fn):
+    """fn() with every launch count set to 0 just before; returns (result,
+    counts, the batch size of each kernel's last launch)."""
+    for k in pyin_cuda.LAUNCHES:
+        pyin_cuda.LAUNCHES[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(pyin_cuda.LAUNCHES), dict(pyin_cuda.LAST_BATCH)
+
+
+def expect_launches(name: str, counts: dict, batch: dict, n: int,
+                    b: int | None = None) -> None:
+    for k in pyin_cuda.LAUNCHES:
+        if counts[k] != n:
+            raise AssertionError(f"{name}: {k} launched {counts[k]} times, "
+                                 f"expected {n}")
+        if b is not None and batch[k] != b:
+            raise AssertionError(f"{name}: {k} launched at B={batch[k]}, "
+                                 f"expected {b}")
+
+
+def f1_of(ref, est) -> float:
+    return note_event_f1(ref, est)["f1"]
+
+
+def secs(events, sr):
+    return events_to_seconds(events, sr, HOP)
+
+
+def n_tiles_of(y: np.ndarray, sr: int, turbo: TurboConfig) -> int:
+    return max(1, -(-AudioConfig(sample_rate=sr).n_frames(len(y))
+                    // turbo.tile_frames))
+
+
+def phase_financial(dev, tracks, total: dict) -> None:
+    """The financial engine's one-shot entry point on the card, through its
+    MIDI bytes: launches, F1 against the CPU engine and against the truth."""
+    clips = [("bench60_22050", 22050, *tracks[22050]),
+             ("ks_44100", 44100, *generate_test_track(sr=44100))]
+    with tempfile.TemporaryDirectory() as d:
+        for name, sr, y, truth in clips:
+            eng = AegisFinancialEngine(sample_rate=sr, device=dev)
+            path = os.path.join(d, f"{name}.mid")
+            out, counts, batch = run_counted(
+                lambda: eng.audio_to_midi_financial(y, path))
+            expect_launches(name, counts, batch, 1, 1)
+            add_counts(total, counts)
+            if out != path:
+                raise AssertionError(f"{name}: no MIDI written")
+            notes = midi_to_notes(path)
+            cpu_path = os.path.join(d, f"{name}_cpu.mid")
+            AegisFinancialEngine(sample_rate=sr, device="cpu"
+                                 ).audio_to_midi_financial(y, cpu_path)
+            cpu_notes = midi_to_notes(cpu_path)
+            row = {"phase": "financial", "clip": name, "sr": sr,
+                   "notes": len(notes), "cpu_notes": len(cpu_notes),
+                   "f1_vs_cpu": f1_of(cpu_notes, notes),
+                   "midi_equal_cpu": open(path, "rb").read()
+                   == open(cpu_path, "rb").read()}
+            if truth is not None:
+                row["truth_f1"] = f1_of(truth, notes)
+                row["truth_notes"] = len(truth)
+            emit(row)
+            if row["f1_vs_cpu"] < 0.99:
+                raise AssertionError(f"{name}: F1 vs CPU {row['f1_vs_cpu']}")
+            if name.startswith("bench") and row["truth_f1"] < 0.99:
+                raise AssertionError(f"{name}: truth F1 {row['truth_f1']}")
+
+
+def tile_obs(y: np.ndarray, sr: int, dev, turbo: TurboConfig):
+    """The decode's observations of every tile as the tiled program computes
+    them on the card: int16 transport, haloed slabs, pYIN stages."""
+    audio = AudioConfig(sample_rate=sr)
+    tables = tables_from_numpy(audio, CFG, dev)
+    n_tiles = n_tiles_of(y, sr, turbo)
+    y16, scale = tturbo._tiled_inputs(
+        np.asarray(y, np.float32)[None],
+        n_tiles * turbo.tile_frames * HOP, "int16", dev)
+    slabs = tturbo.tile_slabs(y16, scale, audio, CFG, turbo, n_tiles)
+    frames = tturbo._frame_slab(slabs, turbo.tile_frames + 2 * turbo.halo_frames,
+                                HOP, CFG.frame_length, 0)
+    obs, vprob = tpyin.frame_observations(frames, sr, CFG, tables)
+    return obs, vprob, tables
+
+
+def phase_tiles(dev, tracks, errs, total: dict) -> dict:
+    """Returns each rate's tile observations, for the times phase."""
+    turbo = TurboConfig()
+    shapes = {}
+    for sr, (y, _) in tracks.items():
+        obs, vprob, tables = tile_obs(y, sr, dev, turbo)
+        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+        compare_kernels(f"tiles60_{sr}", lo_v, lo_u, tables.band,
+                        tables.half_width, 1.0, errs)
+        shapes[sr] = (obs, vprob, tables)
+        n_tiles = n_tiles_of(y, sr, turbo)
+
+        v1 = AegisEngine(sample_rate=sr, device=dev)
+        raw, counts, batch = run_counted(
+            lambda: v1.audio_to_midi(y, turbo_mode="tiles"))
+        expect_launches(f"v1 tiles {sr}", counts, batch, 1, n_tiles)
+        add_counts(total, counts)
+        ev = v1.extract_events(raw, None, confidence_threshold=0.3)
+        ev_fused = v1.extract_events(v1.audio_to_midi(y), None,
+                                     confidence_threshold=0.3)
+
+        fin = AegisFinancialEngine(sample_rate=sr, device=dev)
+        a, counts, batch = run_counted(
+            lambda: fin.analyze(y, turbo_mode="tiles"))
+        expect_launches(f"financial tiles {sr}", counts, batch, 1, n_tiles)
+        add_counts(total, counts)
+        fev, _ = fin.extract_events(a)
+        fev_fused, _ = fin.extract_events(fin.analyze(y))
+        row = {"phase": "tiles", "sr": sr, "n_tiles": n_tiles,
+               "v1_events": len(ev), "v1_f1_vs_fused":
+               f1_of(secs(ev_fused, sr), secs(ev, sr)),
+               "financial_events": len(fev), "financial_f1_vs_fused":
+               f1_of(secs(fev_fused, sr), secs(fev, sr))}
+        emit(row)
+        if min(row["v1_f1_vs_fused"], row["financial_f1_vs_fused"]) < 0.99:
+            raise AssertionError(f"tiles {sr}: F1 vs fused below 0.99")
+    return shapes
+
+
+def sync_warnings_of(fn):
+    """fn() under torch's CUDA sync debug mode: the result and the messages
+    of the synchronizing calls it made."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message).splitlines()[0][:120] for w in caught]
+
+
+def phase_batch(dev, folder: str, ys: list, total: dict) -> None:
+    audio = AudioConfig(sample_rate=22050)
+    for engine in ("v1", "financial"):
+        out_dir = os.path.join(folder, f"mid_{engine}")
+        results, counts, batch = run_counted(lambda: transcribe_folder(
+            folder, out_dir, engine=engine, device=dev))
+        expect_launches(f"folder {engine}", counts, batch, len(ys), 1)
+        add_counts(total, counts)
+        same = []
+        for wav, mid, n in results:
+            ref = os.path.join(folder, f"facade_{engine}.mid")
+            if engine == "v1":
+                eng = AegisEngine(sample_rate=22050, device=dev)
+                n_ref = len(eng.extract_events(eng.audio_to_midi(wav), ref))
+            else:
+                eng = AegisFinancialEngine(sample_rate=22050, device=dev)
+                eng.audio_to_midi_financial(wav, ref)
+                n_ref = len(eng.extract_events(eng.analyze(wav))[0])
+            same.append(n == n_ref and open(mid, "rb").read()
+                        == open(ref, "rb").read())
+        emit({"phase": "batch", "engine": engine, "tracks": len(results),
+              "events": [n for _, _, n in results],
+              "equal_to_facade": same})
+        if not all(same) or len(results) != len(ys):
+            raise AssertionError(f"folder {engine}: differs from the facade")
+
+    # the folder's dispatch half must queue work without waiting for it
+    handles, msgs = sync_warnings_of(lambda: [dispatch_analyze(
+        y, audio, CFG, financial=True, fetch_mel=False, device=dev)
+        for y in ys])
+    for h in handles:
+        fetch_analyze(h)
+    emit({"phase": "batch", "dispatch_sync_calls": len(msgs),
+          "first": msgs[:3]})
+
+    n_tiles = n_tiles_of(ys[0], 22050, TurboConfig())
+    out, counts, batch = run_counted(lambda: tturbo.run_analyze_batch(
+        np.stack(ys), audio, CFG, financial=True, fetch_mel=False,
+        device=dev))
+    expect_launches("run_analyze_batch", counts, batch, 1, len(ys) * n_tiles)
+    add_counts(total, counts)
+    shapes = {k: out[k].shape for k in ("adaptive_threshold",
+                                         "distortion_score", "f0", "trend")}
+    emit({"phase": "batch", "engine": "run_analyze_batch",
+          "B": batch["viterbi_fwd"], "shapes": shapes,
+          "adaptive_threshold": out["adaptive_threshold"].tolist()})
+    T = audio.n_frames(len(ys[0]))
+    if (shapes["adaptive_threshold"] != (len(ys),)
+            or shapes["distortion_score"] != (len(ys),)
+            or shapes["f0"] != (len(ys), T)):
+        raise AssertionError(f"run_analyze_batch shapes {shapes}")
+
+
+def raw_of(out: dict) -> dict:
+    """An analyze result as the v1 facade's raw_data (f0 zero-filled)."""
+    return {**out, "f0": np.nan_to_num(np.asarray(out["f0"], np.float64))}
+
+
+def phase_stream(dev, y10, truth10, total: dict) -> None:
+    audio = AudioConfig(sample_rate=22050)
+    v1 = AegisEngine(sample_rate=22050, device=dev)
+    fin = AegisFinancialEngine(sample_rate=22050, device=dev)
+    raw, counts, batch = run_counted(
+        lambda: v1.audio_to_midi(y10, turbo_mode="stream"))
+    expect_launches("v1 stream", counts, batch, 2, 16)
+    add_counts(total, counts)
+    ev = v1.extract_events(raw, None, confidence_threshold=0.3)
+    a, counts, batch = run_counted(
+        lambda: fin.analyze(y10, turbo_mode="stream"))
+    expect_launches("financial stream", counts, batch, 2, 16)
+    add_counts(total, counts)
+    fev, _ = fin.extract_events(a)
+
+    tiles16 = tturbo.run_analyze_turbo(y10, audio, CFG, fetch_mel=False,
+                                       device=dev)
+    st16 = tturbo.run_analyze_streamed(y10, audio, CFG, transport="int16",
+                                       device=dev)
+    ev_t = v1.extract_events(raw_of(tiles16), None, confidence_threshold=0.3)
+    ev_s = v1.extract_events(raw_of(st16), None, confidence_threshold=0.3)
+    ftiles = tturbo.run_analyze_turbo(y10, audio, CFG, fetch_mel=False,
+                                      financial=True, device=dev)
+    fst16 = tturbo.run_analyze_streamed(y10, audio, CFG, transport="int16",
+                                        financial=True, device=dev)
+    bit = {k: bool(np.array_equal(st16[k], tiles16[k], equal_nan=k == "f0"))
+           for k in ("f0", "voiced_flag", "voiced_probs", "rms")}
+    row = {"phase": "stream", "seconds": len(y10) / 22050,
+           "n_tiles": n_tiles_of(y10, 22050, TurboConfig()), "slabs": 2,
+           "v1_events": len(ev), "financial_events": len(fev),
+           "truth_notes": len(truth10),
+           "v1_truth_f1": f1_of(truth10, secs(ev, 22050)),
+           "financial_truth_f1": f1_of(truth10, secs(fev, 22050)),
+           "v1_int16_f1_vs_tiles": f1_of(secs(ev_t, 22050), secs(ev_s, 22050)),
+           "financial_int16_f1_vs_tiles": f1_of(
+               secs(fin.extract_events(ftiles)[0], 22050),
+               secs(fin.extract_events(fst16)[0], 22050)),
+           "pyin_rows_bit_identical_to_tiles": bit}
+    emit(row)
+    if min(row["v1_truth_f1"], row["financial_truth_f1"]) < 0.99:
+        raise AssertionError("stream: truth F1 below 0.99")
+    if min(row["v1_int16_f1_vs_tiles"], row["financial_int16_f1_vs_tiles"]) < 1.0:
+        raise AssertionError("stream: int16 events differ from tiles")
+
+
+def phase_times2(dev, tracks, folder: str, y10, tile_shapes) -> dict:
+    y, _ = tracks[22050]
+    fin = AegisFinancialEngine(sample_rate=22050, device=dev)
+    v1 = AegisEngine(sample_rate=22050, device=dev)
+    rows = {
+        "financial_fused_60s": (60.0, lambda: fin.audio_to_midi_financial(
+            y, io.BytesIO())),
+        "v1_tiles_60s": (60.0, lambda: v1.audio_to_midi(y, turbo_mode="tiles")),
+        "folder_v1_4x60s": (240.0, lambda: transcribe_folder(
+            folder, os.path.join(folder, "t_v1"), engine="v1", device=dev)),
+        "folder_financial_4x60s": (240.0, lambda: transcribe_folder(
+            folder, os.path.join(folder, "t_fin"), engine="financial",
+            device=dev)),
+        "v1_stream_600s": (len(y10) / 22050, lambda: v1.audio_to_midi(
+            y10, turbo_mode="stream")),
+    }
+    for what, (audio_s, fn) in rows.items():
+        ms = cuda_ms(fn)
+        emit({"phase": "times", "what": what, "median_ms": ms,
+              "audio_s": audio_s,
+              "realtime_factor": audio_s / (ms / 1000.0)})
+
+    kernel_ms = {}
+    for sr, (obs, vprob, tables) in tile_shapes.items():
+        n, w, band = CFG.n_pitch_bins, tables.half_width, tables.band
+        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+        dense = pyin_cuda.dense_from_band(band, n, w)
+        psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
+                                                     LOG_STAY, LOG_SWITCH)
+        row = {
+            "viterbi_fwd": cuda_ms(lambda: pyin_cuda.viterbi_fwd(
+                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH)),
+            "viterbi_fwd_plain": cuda_ms(lambda: pyin_cuda.viterbi_fwd_plain(
+                lo_v, lo_u, dense, LOG_STAY, LOG_SWITCH)),
+            "viterbi_back": cuda_ms(lambda: pyin_cuda.viterbi_back(
+                d_last, psi_v, psi_u)),
+            "viterbi_back_plain": cuda_ms(lambda: pyin_cuda.viterbi_back_plain(
+                d_last, psi_v, psi_u)),
+        }
+        kernel_ms[sr] = row
+        emit({"phase": "times", "what": "viterbi_tiles", "sr": sr,
+              "B": lo_v.shape[0], "T": lo_v.shape[1], "w": w,
+              "median_ms": row})
+
+    fin.analyze(y)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fin.analyze(y)
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+
+    def dev_us(a, total_=False):
+        names = (("device_time_total", "cuda_time_total") if total_
+                 else ("self_device_time_total", "self_cuda_time_total"))
+        for nm in names:
+            if hasattr(a, nm):
+                return getattr(a, nm)
+        return 0.0
+
+    kernels = [a for a in avgs
+               if a.device_type == torch.autograd.DeviceType.CUDA
+               and not a.key.startswith(("aegis.", "financial."))]
+    busy_ms = sum(dev_us(a) for a in kernels) / 1000.0
+    trend = [{"key": a.key, "device_type": str(a.device_type),
+              "device_ms_total": dev_us(a, True) / 1000.0,
+              "cpu_ms_total": a.cpu_time_total / 1000.0, "count": a.count}
+             for a in avgs if a.key == "aegis.trend"]
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    emit({"phase": "profile", "what": "financial_fused_60s_analyze",
+          "device_busy_ms": busy_ms,
+          "kernel_launches": sum(a.count for a in kernels),
+          "trend_stack": trend,
+          "top_device_kernels": [[a.key[:70], dev_us(a) / 1000.0, a.count]
+                                 for a in top]})
+    return kernel_ms
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
 def main() -> int:
-    dev = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+        return out
+
+    dev = timed("device", phase_device)
+    timed("build", phase_build)
     tracks = {sr: generate_bench_track(60.0, sr=sr, return_truth=True)
               for sr in (22050, 44100)}
     errs: dict = {}
-    shapes = phase_kernels(dev, tracks, errs)
-    launches = phase_slice(dev, tracks)
-    kernel_ms = phase_times(dev, tracks, shapes)[22050]
+    shapes = timed("kernels", phase_kernels, dev, tracks, errs)
+    launches = timed("slice", phase_slice, dev, tracks)
+    kernel_ms = timed("times", phase_times, dev, tracks, shapes)[22050]
+    total = dict(launches)
+    timed("financial", phase_financial, dev, tracks, total)
+    tile_shapes = timed("tiles", phase_tiles, dev, tracks, errs, total)
+    with tempfile.TemporaryDirectory() as folder:
+        ys = []
+        for seed in (42, 43, 44, 45):
+            y = generate_bench_track(60.0, sr=22050, seed=seed)
+            write_wav(os.path.join(folder, f"bench60_seed{seed}.wav"), y,
+                      22050)
+            ys.append(y)
+        timed("batch", phase_batch, dev, folder, ys, total)
+        y10, truth10 = generate_bench_track(600.0, sr=22050, return_truth=True)
+        timed("stream", phase_stream, dev, y10, truth10, total)
+        tiles_ms = timed("times_modes", phase_times2, dev, tracks, folder, y10,
+                         tile_shapes)
+    emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
+    b_tiles = {sr: sh[0].shape[0] for sr, sh in tile_shapes.items()}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "launches": total[name],
          "max_abs_err": errs[name], "ms": kernel_ms[name],
          "plain_ms": kernel_ms[f"{name}_plain"],
-         "shape": "B=1, T=2625, n=450, w=101 (60 s at 22050 Hz)"}
+         "shape": "B=1, T=2625, n=450, w=101 (60 s at 22050 Hz)",
+         "ms_tiles": {str(sr): tiles_ms[sr][name] for sr in tiles_ms},
+         "plain_ms_tiles": {str(sr): tiles_ms[sr][f"{name}_plain"]
+                            for sr in tiles_ms},
+         "shape_tiles": {str(sr): f"B={b_tiles[sr]}, T=1152, n=450"
+                         for sr in b_tiles}}
         for name in ("viterbi_fwd", "viterbi_back")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,10 @@ CASES = {
                           (48, 6, 100, 3, (0,), True),
                           (48, 7, 400, 9, (0, 1), False)]),
     "t1": (101, [(1, 3, 200, 8, (0,), False)]),
+    # a tile batch as the tiled program launches it at 44 100 Hz: six
+    # haloed 1024 + 2*64 frame tiles, one CTA each
+    "tiles_b6_w51": (51, [(1152, 30 + i, 100 + 50 * i, 6, (-1, 0, 1), True)
+                          for i in range(6)]),
 }
 
 

@@ -12,6 +12,10 @@ from aegis_tpu.core import dsp as jdsp
 from aegis_tpu_torch.core import dsp as tdsp
 from aegis_tpu_torch.core.tables import tables_from_numpy
 
+# One torch thread per process: the suite runs in parallel pytest workers,
+# and torch's default of one thread per core oversubscribes the CPU.
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -22,6 +22,12 @@ from aegis_tpu.tools.signal_gen import generate_scale_benchmark, generate_test_t
 from aegis_tpu.verify.metrics import events_to_seconds, note_event_f1
 from aegis_tpu_torch.core.analyze import _V1_ROWS, run_analyze
 from aegis_tpu_torch.engine.engine import AegisEngine
+from aegis_tpu_torch.engine.financial import AegisFinancialEngine
+from aegis_tpu_torch.engine.folder import transcribe_folder
+
+# One torch thread per process: the suite runs in parallel pytest workers,
+# and torch's default of one thread per core oversubscribes the CPU.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 CLIPS = {
@@ -120,15 +126,39 @@ def test_raw_data_roundtrip_and_bpm(tmp_path, raws):
     assert bpm is None or bpm > 0
 
 
-def test_unported_modes_raise():
-    eng = AegisEngine(sample_rate=22050, device="cpu")
+def test_unported_modes_raise(tmp_path):
+    """What stays unported raises: the neural pitch backend on both facades,
+    the poly and auto folder engines; an unknown turbo mode is an error."""
     y = np.zeros(22050, np.float32)
-    with pytest.raises(NotImplementedError):
-        eng.audio_to_midi(y, turbo_mode="tiles")
+    eng = AegisEngine(sample_rate=22050, device="cpu")
     with pytest.raises(NotImplementedError):
         eng.audio_to_midi(y, pitch_backend="neural")
+    with pytest.raises(NotImplementedError):
+        AegisFinancialEngine(device="cpu").analyze(y, pitch_backend="neural")
+    for engine in ("poly", "auto"):
+        with pytest.raises(NotImplementedError):
+            transcribe_folder(str(tmp_path), engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError):
+        transcribe_folder(str(tmp_path), pitch_backend="neural", device="cpu")
     with pytest.raises(ValueError):
         eng.audio_to_midi(y, turbo_mode="bogus")
+
+
+def test_turbo_modes_run_through_the_facade():
+    """turbo_mode "auto" past stream_threshold_s streams (it used to raise
+    past 240 s), and "tiles" and "stream" run: each gives the fused
+    program's frame count and events on a short clip."""
+    y, _ = generate_test_track(sr=22050)
+    eng = AegisEngine(sample_rate=22050, device="cpu")
+    fused = eng.audio_to_midi(y)
+    ev_fused = eng.extract_events(fused, None, confidence_threshold=0.5)
+    for kw in ({"turbo_mode": "auto", "stream_threshold_s": 1.0},
+               {"turbo_mode": "tiles"}, {"turbo_mode": "stream"}):
+        raw = eng.audio_to_midi(y, **kw)
+        assert raw["f0"].shape == fused["f0"].shape, kw
+        ev = eng.extract_events(raw, None, confidence_threshold=0.5)
+        assert [(e["note"], e["start"], e["end"]) for e in ev] == \
+            [(e["note"], e["start"], e["end"]) for e in ev_fused], kw
 
 
 def test_cli_transcribe(tmp_path):
@@ -139,7 +169,8 @@ def test_cli_transcribe(tmp_path):
         [sys.executable, "-m", "aegis_tpu_torch", "transcribe", str(wav),
          str(mid), "--sr", "22050", "--device", "cpu", "--confidence", "0.5"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": str(REPO)})
+        env={**os.environ, "PYTHONPATH": str(REPO),
+             "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert "events ->" in proc.stdout
     assert {40, 45, 50} <= {n["note"] for n in midi_to_notes(str(mid))}
@@ -148,25 +179,37 @@ def test_cli_transcribe(tmp_path):
 # ------------------------------------------------------------------ guards
 
 def test_port_never_imports_jax():
-    """With jax made unimportable, the port still runs the whole v1 path."""
+    """With jax made unimportable, the port still runs the v1 path fused,
+    tiled and streamed, the financial engine, and the folder sweep."""
     code = (
-        "import sys\n"
+        "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"
         "import numpy as np, io\n"
+        "from aegis_tpu.io import write_wav\n"
         "from aegis_tpu_torch.engine.engine import AegisEngine\n"
+        "from aegis_tpu_torch.engine.financial import AegisFinancialEngine\n"
+        "from aegis_tpu_torch.engine.folder import transcribe_folder\n"
         "from aegis_tpu.tools.signal_gen import generate_test_track\n"
         "y = generate_test_track(sr=22050)[0][:2 * 22050]\n"
         "eng = AegisEngine(sample_rate=22050, device='cpu')\n"
-        "raw = eng.audio_to_midi(y)\n"
-        "buf = io.BytesIO()\n"
-        "events = eng.extract_events(raw, buf, confidence_threshold=0.5)\n"
-        "assert events and buf.getvalue().startswith(b'MThd')\n"
+        "for mode in (False, 'tiles', 'stream'):\n"
+        "    raw = eng.audio_to_midi(y, turbo_mode=mode)\n"
+        "    buf = io.BytesIO()\n"
+        "    events = eng.extract_events(raw, buf, confidence_threshold=0.5)\n"
+        "    assert events and buf.getvalue().startswith(b'MThd'), mode\n"
+        "fin = AegisFinancialEngine(device='cpu')\n"
+        "d = tempfile.mkdtemp()\n"
+        "write_wav(os.path.join(d, 'a.wav'), y, 22050)\n"
+        "assert fin.audio_to_midi_financial(y, os.path.join(d, 'f.mid'))\n"
+        "assert fin.analyze(y, turbo_mode='stream')['trend'].shape == raw['f0'].shape\n"
+        "assert transcribe_folder(d, engine='financial', device='cpu')\n"
         "loaded = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert all(sys.modules[m] is None for m in loaded), loaded\n"
         "print('ok', len(events))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
-                          env={**os.environ, "PYTHONPATH": str(REPO)})
+                          env={**os.environ, "PYTHONPATH": str(REPO),
+                               "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1].startswith("ok")
 
@@ -177,6 +220,10 @@ def test_cuda_engine_raises_without_a_card(monkeypatch):
         AegisEngine(sample_rate=22050, device="cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         AegisEngine(sample_rate=22050)  # the default device is cuda
+    with pytest.raises(RuntimeError, match="is_available"):
+        AegisFinancialEngine(device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        AegisFinancialEngine()
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

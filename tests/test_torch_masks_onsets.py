@@ -11,6 +11,10 @@ from aegis_tpu.tools.signal_gen import generate_test_track
 from aegis_tpu_torch.core import cqt as tcqt
 from aegis_tpu_torch.core import masks as tmasks
 
+# One torch thread per process: the suite runs in parallel pytest workers,
+# and torch's default of one thread per core oversubscribes the CPU.
+torch.set_num_threads(1)
+
 SR = 22050
 
 

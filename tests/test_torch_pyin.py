@@ -21,6 +21,10 @@ from aegis_tpu_torch.core import pyin_cuda
 from aegis_tpu_torch.core.tables import log_transition_band, tables_from_numpy
 from aegis_tpu_torch.tools.signal_gen import wandering_pitch_obs
 
+# One torch thread per process: the suite runs in parallel pytest workers,
+# and torch's default of one thread per core oversubscribes the CPU.
+torch.set_num_threads(1)
+
 CFG = PyinConfig()
 N = CFG.n_pitch_bins
 SR = 22050
@@ -167,7 +171,8 @@ def test_decode_states_wide_band_equals_jax_scan():
     tables = tables_from_numpy(AudioConfig(sample_rate=SR), CFG, CPU)
     wide = dataclasses.replace(tables, band=_t(log_transition_band(N, width)),
                                half_width=width)
-    got = tpyin._decode_states(_t(obs), _t(vprob), wide, CFG).numpy()
+    got = tpyin._decode_states(_t(obs)[None], _t(vprob)[None], wide,
+                               CFG)[0].numpy()
     np.testing.assert_array_equal(got, ref)
 
 
