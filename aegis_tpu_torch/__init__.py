@@ -3,10 +3,12 @@
 The JAX package ``aegis_tpu`` is the reference; this package mirrors its
 layout and names (``core/dsp.py`` here is the counterpart of
 ``aegis_tpu/core/dsp.py``) and is held against it by the
-``tests/test_torch_*.py`` parity tests.  It imports ``torch`` and never
-``jax``: of ``aegis_tpu`` it imports only modules that are pure NumPy or
-C++ (config, filters, the ``ref`` oracles, events helpers, io, midi, tempo,
-signal generators, metrics, logging).
+``tests/test_torch_*.py`` parity tests.  It stands alone: it imports
+``torch`` and never ``jax``, and nothing of ``aegis_tpu`` either.  The host
+modules it needs (config, filters, the ``ref`` table functions, events, the
+native C++ cores, io, midi, harmony, tempo, signal generators, metrics,
+logging) are copies under the same relative paths, held equal to their
+originals by ``tests/test_torch_engine.py``.
 
 Device code is plain tensor code on an explicit ``device``; the pYIN
 Viterbi decode runs as hand-written CUDA kernels (``csrc/viterbi.cu``) on a

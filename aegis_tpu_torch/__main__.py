@@ -27,7 +27,7 @@ def _extract_kwargs(args) -> dict:
     if args.sustain_ms is not None:
         kw["sustain_ms"] = args.sustain_ms
     if args.bpm is not None:
-        from aegis_tpu.core.tempo import parse_bpm
+        from aegis_tpu_torch.core.tempo import parse_bpm
 
         try:
             kw["bpm"] = parse_bpm(args.bpm)

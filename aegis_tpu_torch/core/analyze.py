@@ -24,7 +24,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from aegis_tpu.config import AudioConfig, PyinConfig
+from aegis_tpu_torch import resolve_device
+from aegis_tpu_torch.config import AudioConfig, PyinConfig
 from aegis_tpu_torch.core import dsp, masks, trend
 from aegis_tpu_torch.core.cqt import onset_strength_t
 from aegis_tpu_torch.core.pyin import extract_pyin_frames, pyin_from_frames
@@ -231,7 +232,7 @@ def dispatch_analyze(
     use_guitar_filters: bool = True,
     fetch_mel: bool = True,
     transport: str = "int8",
-    device="cpu",
+    device="cuda",
 ):
     """Async half of run_analyze: bucket-pad, quantize, upload, queue the
     analyze step on ``device`` and return an opaque handle WITHOUT waiting
@@ -239,7 +240,7 @@ def dispatch_analyze(
     in flight before any fetch.  Resolve with fetch_analyze(handle).  The
     first call for a new length or config builds its constant tables,
     which uploads them once."""
-    device = torch.device(device)
+    device = resolve_device(device)
     true_frames = audio.n_frames(len(y))
     y_pad = pad_to_bucket(np.asarray(y, np.float32))
     if transport == "int8":
@@ -283,7 +284,7 @@ def run_analyze(
     use_guitar_filters: bool = True,
     fetch_mel: bool = True,
     transport: str = "int8",
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Host wrapper: bucket-pad, quantize for the upload, run the analyze
     step on ``device``, fetch the single packed buffer, truncate to the

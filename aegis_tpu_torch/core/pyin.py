@@ -19,7 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from aegis_tpu.config import AudioConfig, PyinConfig
+from aegis_tpu_torch import resolve_device
+from aegis_tpu_torch.config import AudioConfig, PyinConfig
 from aegis_tpu_torch.core import dsp, pyin_cuda
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
 
@@ -166,7 +167,7 @@ def _decode_states(obs: torch.Tensor, voiced_prob: torch.Tensor,
     return pyin_cuda.viterbi_decode_cuda(
         *decode_inputs(obs, voiced_prob), tables.band, cfg.n_pitch_bins,
         tables.half_width, float(np.log1p(-cfg.switch_prob)),
-        float(np.log(cfg.switch_prob)))
+        float(np.log(cfg.switch_prob)), tables.band_tab)
 
 
 def frame_observations(frames: torch.Tensor, sr: int, cfg: PyinConfig,
@@ -211,11 +212,11 @@ def extract_pyin_frames(y: torch.Tensor, hop_length: int,
 
 
 def pyin(y, sr: int, hop_length: int = 512, cfg: PyinConfig | None = None,
-         device="cpu"):
+         device="cuda"):
     """Full pYIN from a 1-D signal (host convenience wrapper)."""
     if cfg is None:
         cfg = PyinConfig()
-    device = torch.device(device)
+    device = resolve_device(device)
     tables = tables_from_numpy(
         AudioConfig(sample_rate=sr, hop_length=hop_length,
                     n_fft=cfg.frame_length), cfg, device)

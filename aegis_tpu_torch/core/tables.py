@@ -1,10 +1,10 @@
 """Constant tables of the analyze path, built once per (config, device).
 
-Every table comes from the same NumPy builder the JAX package calls
-(``aegis_tpu/core/filters.py``, ``aegis_tpu/ref/pyin_ref.py`` and, for the
-financial trend stack, ``aegis_tpu/ref/trend_ref.py`` and the Kalman gain
-recurrence of ``aegis_tpu/core/trend.py``) in float32, so both packages
-compute from bit-identical constants.
+Every table comes from this package's copy of the NumPy function the JAX
+package calls (``core/filters.py``, ``ref/pyin_ref.py`` and, for the
+financial trend stack, ``ref/trend_ref.py`` and the Kalman gain recurrence
+of ``aegis_tpu/core/trend.py``) in float32, so both packages compute from
+bit-identical constants.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from aegis_tpu.config import AudioConfig, PyinConfig
-from aegis_tpu.core.filters import dft_matrices, hann_window, mel_filterbank
-from aegis_tpu.ref.pyin_ref import beta_threshold_probs, local_transition
-from aegis_tpu.ref.trend_ref import _savgol_kernel
+from aegis_tpu_torch.config import AudioConfig, PyinConfig
+from aegis_tpu_torch.core.filters import dft_matrices, hann_window, mel_filterbank
+from aegis_tpu_torch.ref.pyin_ref import beta_threshold_probs, local_transition
+from aegis_tpu_torch.ref.trend_ref import _savgol_kernel
 
 # log(0 + 1e-30): the dense decode's out-of-band transition score
 # (aegis_tpu/core/pyin.py applies log(trans + 1e-30) to the whole matrix)
@@ -35,6 +35,7 @@ class Tables:
     thresholds: torch.Tensor   # (n_thresholds,)
     beta_probs: torch.Tensor   # (n_thresholds,)
     band: torch.Tensor         # (n_bins, 2w+1), see log_transition_band
+    band_tab: torch.Tensor     # (n_cls, w+1), see band_class_table
     half_width: int            # w
     bin_hz: torch.Tensor       # (n_bins,) pitch of each bin, see bin_frequencies
 
@@ -51,6 +52,57 @@ def log_transition_band(n: int, w: int) -> np.ndarray:
     ok = (i >= 0) & (i < n)
     band[ok] = log_t[i[ok], np.broadcast_to(j, i.shape)[ok]]
     return band
+
+
+def row_classes(n: int, w: int) -> np.ndarray:
+    """(n,) int: the class of each source state's row of the transition
+    matrix.  The row sum of ``local_transition`` depends only on how far the
+    source is from the nearer edge, min(i, n-1-i, w); where n < 2w + 1 a
+    source can be clipped on both sides, and the class is the source."""
+    i = np.arange(n)
+    if n < 2 * w + 1:
+        return i
+    return np.minimum(np.minimum(i, n - 1 - i), w)
+
+
+def expand_class_table(tab: np.ndarray, n: int, w: int) -> np.ndarray:
+    """The (n, 2w+1) band that a class table stands for:
+    band[j, k] = tab[class of i, |i - j|] for the source i = j - w + k."""
+    band = np.full((n, 2 * w + 1), LOG_FLOOR, np.float32)
+    j = np.arange(n)[:, None]
+    i = j - w + np.arange(2 * w + 1)[None, :]
+    ok = (i >= 0) & (i < n)
+    cls = row_classes(n, w)
+    band[ok] = tab[cls[i[ok]], np.abs(i - j)[ok]]
+    return band
+
+
+def band_class_table(band: np.ndarray, n: int, w: int) -> np.ndarray:
+    """(n_cls, w+1) float32, the band without its repetitions:
+    tab[c, d] is the score of a source of row class c (``row_classes``)
+    into the destination d states away, either side; n_cls = w + 1, or n
+    where n < 2w + 1.  Every entry is read out of ``band`` (entries no
+    in-range pair reaches hold LOG_FLOOR), and the table is expanded again:
+    unless that equals ``band`` bit for bit this raises, so a decode from
+    the table reads the very float32 values a decode from the band reads."""
+    band = np.ascontiguousarray(band, np.float32)
+    if band.shape != (n, 2 * w + 1):
+        raise ValueError(f"band has shape {band.shape}, expected "
+                         f"{(n, 2 * w + 1)}")
+    n_cls = int(row_classes(n, w).max()) + 1
+    i = np.arange(n_cls)[:, None]   # class c's first source is state c
+    d = np.arange(w + 1)[None, :]
+    up, down = i + d, i - d
+    j = np.where(up < n, up, down)
+    ok = (up < n) | (down >= 0)
+    tab = np.full((n_cls, w + 1), LOG_FLOOR, np.float32)
+    tab[ok] = band[j[ok], (i - j + w)[ok]]
+    if not np.array_equal(expand_class_table(tab, n, w).view(np.uint32),
+                          band.view(np.uint32)):
+        raise ValueError(
+            f"the (n={n}, w={w}) band is not a function of the source's row "
+            "class and |i - j|: it cannot be decoded from a class table")
+    return tab
 
 
 def bin_frequencies(cfg: PyinConfig) -> torch.Tensor:
@@ -104,6 +156,7 @@ def tables_from_numpy(audio: AudioConfig, pyin_cfg: PyinConfig,
     cos_m, sin_m = dft_matrices(audio.n_fft)
     thresholds, beta = beta_threshold_probs(pyin_cfg)
     w = pyin_cfg.transition_width(audio.sample_rate, audio.hop_length)
+    band = log_transition_band(pyin_cfg.n_pitch_bins, w)
     return Tables(
         window=dev(hann_window(audio.n_fft)),
         dft_cos=dev(cos_m),
@@ -112,7 +165,8 @@ def tables_from_numpy(audio: AudioConfig, pyin_cfg: PyinConfig,
                                     audio.n_mels).T),
         thresholds=dev(thresholds),
         beta_probs=dev(beta),
-        band=dev(log_transition_band(pyin_cfg.n_pitch_bins, w)),
+        band=dev(band),
+        band_tab=dev(band_class_table(band, pyin_cfg.n_pitch_bins, w)),
         half_width=w,
         bin_hz=bin_frequencies(pyin_cfg).to(device),
     )

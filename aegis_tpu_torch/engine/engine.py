@@ -7,7 +7,7 @@ Counterpart of ``aegis_tpu/engine/engine.py`` with the pYIN backend:
     (``core.analyze.run_analyze``), the tiled program
     (``engine.turbo.run_analyze_turbo``) or bounded-memory slabs
     (``engine.turbo.run_analyze_streamed``), chosen by ``turbo_mode``
-    through the JAX package's ``normalize_turbo_mode``;
+    through ``normalize_turbo_mode``;
   * ``extract_events(raw_data, output_mid, **kw) -> events`` — the
     re-runnable event extraction and MIDI encode.
 
@@ -26,18 +26,43 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from aegis_tpu.config import AudioConfig, PyinConfig
-from aegis_tpu.engine.engine import normalize_turbo_mode
-from aegis_tpu.io.audio import load_audio as _load_audio
-from aegis_tpu.midi.encode import events_to_midi
-from aegis_tpu.utils.logging import get_logger
 from aegis_tpu_torch import resolve_device
+from aegis_tpu_torch.config import AudioConfig, PyinConfig
 from aegis_tpu_torch.core.analyze import run_analyze
 from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.engine.turbo import (run_analyze_streamed,
                                           run_analyze_turbo)
+from aegis_tpu_torch.io.audio import load_audio as _load_audio
+from aegis_tpu_torch.midi.encode import events_to_midi
+from aegis_tpu_torch.utils.logging import get_logger
 
 log = get_logger("Aegis")
+
+
+def normalize_turbo_mode(mode, n_samples: int, sample_rate: int,
+                         stream_threshold_s: float = 240.0,
+                         allow_stream: bool = True):
+    """One canonical turbo vocabulary for the facades and the CLI.
+
+    Returns False (fused single program), "tiles" (the tiled program) or
+    "stream" (bounded-memory slabs):
+      False | None | "" | "off"  -> False
+      True | "tiles" | "turbo"   -> "tiles"
+      "stream"                   -> "stream" (or "tiles" if not available)
+      "auto"                     -> "stream" past stream_threshold_s,
+                                    else False
+    Unknown strings raise ValueError."""
+    if mode in (False, None, "", "off"):
+        return False
+    if mode in (True, "tiles", "turbo"):
+        return "tiles"
+    if mode == "stream":
+        return "stream" if allow_stream else "tiles"
+    if mode == "auto":
+        if n_samples / sample_rate > stream_threshold_s:
+            return "stream" if allow_stream else "tiles"
+        return False
+    raise ValueError(f"unknown turbo mode: {mode!r}")
 
 
 def analyze_pyin(y: np.ndarray, audio: AudioConfig, pyin_cfg: PyinConfig,
@@ -168,7 +193,7 @@ class AegisEngine:
     def estimate_bpm(self, raw_data: Dict):
         """Tempo estimate from the analysis onset envelope (None when the
         track carries no periodicity)."""
-        from aegis_tpu.core.tempo import estimate_bpm
+        from aegis_tpu_torch.core.tempo import estimate_bpm
 
         return estimate_bpm(raw_data, self.sr, self.hop_length)
 

@@ -22,11 +22,11 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from aegis_tpu.config import AudioConfig, PyinConfig
-from aegis_tpu.engine.engine import normalize_turbo_mode
-from aegis_tpu.io.audio import load_audio as _load_audio
-from aegis_tpu.midi.encode import events_to_midi_financial
-from aegis_tpu.utils.logging import get_logger
+from aegis_tpu_torch.config import AudioConfig, PyinConfig
+from aegis_tpu_torch.engine.engine import normalize_turbo_mode
+from aegis_tpu_torch.io.audio import load_audio as _load_audio
+from aegis_tpu_torch.midi.encode import events_to_midi_financial
+from aegis_tpu_torch.utils.logging import get_logger
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core.events import extract_events_financial
 from aegis_tpu_torch.engine.engine import analyze_pyin
@@ -127,7 +127,7 @@ class AegisFinancialEngine:
         return events, info
 
     def estimate_bpm(self, analysis: Dict[str, np.ndarray]):
-        from aegis_tpu.core.tempo import estimate_bpm
+        from aegis_tpu_torch.core.tempo import estimate_bpm
 
         return estimate_bpm(analysis, self.sr, self.hop_length)
 

@@ -19,10 +19,10 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from aegis_tpu.config import AudioConfig, PyinConfig, TurboConfig
-from aegis_tpu.io.audio import load_audio
-from aegis_tpu.midi.encode import events_to_midi, events_to_midi_financial
-from aegis_tpu.utils.logging import get_logger
+from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
+from aegis_tpu_torch.io.audio import load_audio
+from aegis_tpu_torch.midi.encode import events_to_midi, events_to_midi_financial
+from aegis_tpu_torch.utils.logging import get_logger
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core.analyze import dispatch_analyze, fetch_analyze
 from aegis_tpu_torch.core.events import extract_events_v1

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aegis_tpu.config import AudioConfig, PyinConfig, TurboConfig
+from aegis_tpu_torch import resolve_device
+from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core import masks, trend
 from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _GTR_ROWS, _INT_ROWS,
                                           _V1_ROWS, PCM8_BLOCK, _unpack,
@@ -320,7 +321,7 @@ def run_analyze_turbo(
     fetch_mel: bool = True,
     financial: bool = False,
     use_guitar_filters: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Single-track tiled analyze: tile the track and stitch the interiors
     back together.  Output schema matches core.analyze.run_analyze (with
@@ -342,14 +343,14 @@ def run_analyze_batch(
     transport: str = "int16",
     financial: bool = False,
     use_guitar_filters: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Batched multi-track tiled analyze: all B x n_tiles tiles in one
     program.  Rows come back (B, T); the per-track scalars of the
     financial schema come back (B,).  transport="float32" skips the int16
     quantization for bit-exact ingest."""
     turbo = turbo or TurboConfig()
-    device = torch.device(device)
+    device = resolve_device(device)
     tile = turbo.tile_frames
     true_frames = audio.n_frames(ys.shape[1])
     n_tiles = max(1, -(-true_frames // tile))
@@ -407,7 +408,7 @@ def run_analyze_streamed(
     fetch_mel: bool = False,
     fetch_group: int = 8,
     transport: str = "int8",
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, np.ndarray]:
     """Bounded-memory tiled analyze for multi-minute tracks.
 
@@ -436,7 +437,7 @@ def run_analyze_streamed(
     block multiple (tile*hop < 1024 configurations).
     """
     turbo = turbo or TurboConfig()
-    device = torch.device(device)
+    device = resolve_device(device)
     tile, halo = turbo.tile_frames, turbo.halo_frames
     hop, fl = audio.hop_length, pyin_cfg.frame_length
     ctx = halo * hop + fl // 2

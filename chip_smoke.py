@@ -13,10 +13,12 @@ CUDA kernels, in ten phases; each raises on failure:
   2. build   — compiles the Viterbi kernels from aegis_tpu_torch/csrc/ with
                nvcc and prints the seconds and the ptxas report.
   3. kernels — each kernel against its plain PyTorch version on the card, on
-               synthetic observations (w = 101, T = 2625 and w = 51,
-               T = 5249: >= 0.99 state agreement) and on the real
-               observations of the 60 s bench track at 22 050 and 44 100 Hz
-               (states identical).
+               synthetic observations (w = 101, T = 2625; w = 51, T = 5249;
+               the stream's slab, B = 16, T = 1152; fewer states than one
+               band, n = 150 < 2w + 1) and on the real observations of the
+               60 s bench track at 22 050 and 44 100 Hz: backpointers, final
+               delta and states identical, with the cluster the wrapper
+               picks and with one CTA a sequence.
   4. slice   — the engine on the card: the 60 s bench track at 22 050 Hz,
                the Karplus-Strong test track and the 60 s bench track at
                44 100 Hz; every kernel's launch count must rise by one per
@@ -24,7 +26,10 @@ CUDA kernels, in ten phases; each raises on failure:
                CPU, truth F1 >= 0.99 on the 22 050 Hz bench track.
   5. times   — warm medians of 5 (CUDA events): audio_to_midi on each 60 s
                track, and each kernel against its plain version at the
-               slice's shapes; a torch.profiler breakdown of one run.
+               slice's shapes, beside its bound (the card's least time for
+               the same bytes and operations) and its serial floor; every
+               variant of the forward kernel (tile, cluster, table in
+               global memory) at the fused shape; a torch.profiler breakdown of one run.
   6. financial — AegisFinancialEngine on the 60 s bench track at 22 050 Hz
                and the Karplus-Strong track at 44 100 Hz: one launch per
                kernel per clip, note-event F1 >= 0.99 against the CPU
@@ -32,7 +37,8 @@ CUDA kernels, in ten phases; each raises on failure:
   7. tiles   — v1 and financial with turbo_mode="tiles" on both 60 s
                tracks: one launch per kernel per call at B = n_tiles, the
                kernels equal to their plain versions on the real tile
-               observations, F1 >= 0.99 against the fused engine.
+               observations (B = 3, B = 6, and the first 16 tiles of the
+               10-minute track), F1 >= 0.99 against the fused engine.
   8. batch   — transcribe_folder over four 60 s bench tracks (seeds 42-45)
                as WAVs, v1 and financial: one launch per kernel per track,
                MIDI equal to the per-track facade's; the synchronizing
@@ -50,7 +56,11 @@ CUDA kernels, in ten phases; each raises on failure:
                with the trend stack's device time apart.
 
 Prints one JSON object per result and each phase's seconds, then the
-kernels line, then as the last line {"ok": true, "device": {...}}.  Exits
+kernels line (each kernel's launches on the main paths, its error, and at
+every shape the launches one call made in this run, its time beside the
+plain version's and its bound; the serial floor stands on the times lines;
+no single PyTorch call computes a Viterbi decode, so library_ms is null), then
+as the last line {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when torch.cuda.is_available() is False or
 the package is missing.
 """
@@ -60,7 +70,6 @@ from __future__ import annotations
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -84,9 +93,11 @@ from aegis_tpu_torch.engine.financial import AegisFinancialEngine
 from aegis_tpu_torch.engine.folder import transcribe_folder
 from aegis_tpu_torch.io import write_wav
 from aegis_tpu_torch.midi import midi_to_notes
+from aegis_tpu_torch.tools.bench_viterbi import (band_and_table, cuda_ms,
+                                                 forward_variant,
+                                                 synthetic_inputs)
 from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
-                                              generate_test_track,
-                                              wandering_pitch_obs)
+                                              generate_test_track)
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
 
 HOP = 512
@@ -94,6 +105,11 @@ CFG = PyinConfig()
 LOG_STAY = float(np.log1p(-CFG.switch_prob))
 LOG_SWITCH = float(np.log(CFG.switch_prob))
 KERNEL_SOURCE = "aegis_tpu_torch/csrc/viterbi.cu"
+# NVIDIA H100 SXM, from its data sheet: float32 outside the tensor cores,
+# device memory, streaming multiprocessors
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+N_SMS = 132
 REPLACES = {"viterbi_fwd": "aegis_tpu/core/pyin_pallas.py:98",
             "viterbi_back": "aegis_tpu/core/pyin_pallas.py:198"}
 
@@ -102,20 +118,31 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Warm median of ``reps`` runs of fn(), timed with CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def kernel_bounds(name: str, B: int, T: int, n: int, w: int) -> dict:
+    """The least time the card could take for one call of a kernel: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its operations over the float32 rate; and the
+    serial floor, T - 1 dependent steps at one SM's rate, which no design
+    for one sequence can pass because step t needs step t - 1."""
+    if name == "viterbi_fwd":
+        # an add and a compare-select per in-band pair and chain
+        step_ops = 4 * (n * (2 * w + 1) - w * (w + 1))
+        ops = B * (T - 1) * step_ops
+        n_cls = n if n < 2 * w + 1 else w + 1
+        nbytes = 4 * (B * T * n + B * T + n_cls * (w + 1)   # observations, table
+                      + 2 * B * T * n + 2 * B * n)          # backpointers, delta
+        floor_ms = 1e3 * (T - 1) * step_ops / (PEAK_FP32_FLOPS / N_SMS)
+    else:
+        # the final delta, then one backpointer read and one state written
+        # a frame; an argmax compare a state and a step a frame
+        ops = B * (2 * n + T)
+        nbytes = 4 * B * (2 * n + 2 * T)
+        floor_ms = None
+    t_ops = 1e3 * ops / PEAK_FP32_FLOPS
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "serial_floor_ms": floor_ms}
 
 
 def phase_device() -> torch.device:
@@ -157,15 +184,20 @@ def real_obs(y: np.ndarray, sr: int, dev: torch.device):
     return obs, vprob, tables
 
 
-def compare_kernels(name: str, lo_v, lo_u, band, w: int, floor: float,
+def compare_kernels(name: str, lo_v, lo_u, band, tab, w: int, floor: float,
                     errs: dict) -> dict:
     """Run both kernels and both plain versions on the same inputs."""
     n = band.shape[0]
     psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
-                                                 LOG_STAY, LOG_SWITCH)
+                                                 LOG_STAY, LOG_SWITCH, tab)
     torch.cuda.synchronize()
     states = pyin_cuda.viterbi_back(d_last, psi_v, psi_u)
+    one_cta = forward_variant(lo_v, lo_u, tab, n, w, 88, 1)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b)
+               for a, b in zip(one_cta, (psi_v, psi_u, d_last))):
+        raise AssertionError(f"{name}: one CTA a sequence differs from the "
+                             "cluster")
     p_v, p_u, p_last = pyin_cuda.viterbi_fwd_plain(
         lo_v, lo_u, pyin_cuda.dense_from_band(band, n, w), LOG_STAY,
         LOG_SWITCH)
@@ -176,8 +208,9 @@ def compare_kernels(name: str, lo_v, lo_u, band, w: int, floor: float,
     back_err = float((states - back_same_in).abs().max())
     errs["viterbi_fwd"] = max(errs.get("viterbi_fwd", 0.0), fwd_err)
     errs["viterbi_back"] = max(errs.get("viterbi_back", 0.0), back_err)
-    row = {"phase": "kernel_vs_plain", "case": name, "T": lo_v.shape[1],
-           "n": n, "w": w, "state_agreement": agree,
+    row = {"phase": "kernel_vs_plain", "case": name, "B": lo_v.shape[0],
+           "T": lo_v.shape[1], "n": n, "w": w, "state_agreement": agree,
+           "delta_last_identical": bool(torch.equal(d_last, p_last)),
            "psi_identical": bool(torch.equal(psi_v, p_v)
                                  and torch.equal(psi_u, p_u)),
            "delta_last_max_abs_err": fwd_err,
@@ -185,6 +218,10 @@ def compare_kernels(name: str, lo_v, lo_u, band, w: int, floor: float,
     emit(row)
     if agree < floor:
         raise AssertionError(f"{name}: state agreement {agree} < {floor}")
+    if floor == 1.0 and not (row["psi_identical"]
+                             and row["delta_last_identical"]):
+        raise AssertionError(f"{name}: backpointers or final delta differ "
+                             "from the plain version")
     if back_err != 0:
         raise AssertionError(f"{name}: backtrace kernel differs from plain")
     return row
@@ -192,28 +229,26 @@ def compare_kernels(name: str, lo_v, lo_u, band, w: int, floor: float,
 
 def phase_kernels(dev, tracks, errs) -> dict:
     n = CFG.n_pitch_bins
-    for w, T, seed, sr in ((101, 2625, 11, 22050), (51, 5249, 21, 44100)):
-        obs, vprob = wandering_pitch_obs(T, n, seed, 200, 8,
-                                         (-2, -1, 0, 1, 2), True)
-        lo_v, lo_u = tpyin.decode_inputs(torch.from_numpy(obs[None]).to(dev),
-                                         torch.from_numpy(vprob[None]).to(dev))
-        tables = tables_from_numpy(AudioConfig(sample_rate=sr), CFG, dev)
-        if tables.half_width != w:
-            raise AssertionError(f"half-width {tables.half_width} != {w}")
-        compare_kernels(f"synthetic_w{w}", lo_v, lo_u, tables.band, w, 0.99,
-                        errs)
+    # (B, T, n, w): the fused shapes, the stream's slab, n < 2w + 1
+    for B, T, n_s, w, seed in ((1, 2625, n, 101, 11), (1, 5249, n, 51, 21),
+                               (16, 1152, n, 101, 31), (2, 300, 150, 101, 41)):
+        lo_v, lo_u = synthetic_inputs(B, T, n_s, dev, seed, 9)
+        band, tab = band_and_table(n_s, w, dev)
+        compare_kernels(f"synthetic_B{B}_T{T}_n{n_s}_w{w}", lo_v, lo_u, band,
+                        tab, w, 1.0, errs)
     shapes = {}
     for sr, (y, _) in tracks.items():
         obs, vprob, tables = real_obs(y, sr, dev)
         lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
         compare_kernels(f"bench60_{sr}", lo_v, lo_u, tables.band,
-                        tables.half_width, 1.0, errs)
+                        tables.band_tab, tables.half_width, 1.0, errs)
         shapes[sr] = (obs, vprob, tables)
     return shapes
 
 
-def phase_slice(dev, tracks) -> dict:
-    """Returns each kernel's launch count over the main path's runs."""
+def phase_slice(dev, tracks, per_call: dict) -> dict:
+    """Returns each kernel's launch count over the main path's runs; notes
+    each clip's own counts in ``per_call``."""
     clips = [("bench60_22050", 22050, *tracks[22050]),
              ("ks_44100", 44100, *generate_test_track(sr=44100)),
              ("bench60_44100", 44100, *tracks[44100])]
@@ -228,10 +263,12 @@ def phase_slice(dev, tracks) -> dict:
         raw = eng.audio_to_midi(y)
         buf = io.BytesIO()
         events = eng.extract_events(raw, buf, confidence_threshold=0.3)
-        for k, v in pyin_cuda.LAUNCHES.items():
-            if v != before[k] + 1:
-                raise AssertionError(f"{name}: {k} launched {v - before[k]} "
-                                     "times, expected 1")
+        per_call[name] = {k: v - before[k]
+                          for k, v in pyin_cuda.LAUNCHES.items()}
+        for k, v in per_call[name].items():
+            if v != 1:
+                raise AssertionError(f"{name}: {k} launched {v} times, "
+                                     "expected 1")
         runs.append((name, sr, y, truth, raw, events, buf.getvalue()))
     launches = dict(pyin_cuda.LAUNCHES)
     emit({"phase": "slice_launches", **launches})
@@ -269,6 +306,60 @@ def phase_slice(dev, tracks) -> dict:
     return launches
 
 
+def time_kernels(obs, vprob, tables, with_decode: bool) -> dict:
+    """Warm medians of each kernel and its plain version on one batch of
+    observations (B, T, n), with the bounds of that shape."""
+    n, w, band, tab = (CFG.n_pitch_bins, tables.half_width, tables.band,
+                       tables.band_tab)
+    lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+    B, T = lo_v.shape[:2]
+    dense = pyin_cuda.dense_from_band(band, n, w)
+    psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
+                                                 LOG_STAY, LOG_SWITCH, tab)
+    row = {
+        "viterbi_fwd": cuda_ms(lambda: pyin_cuda.viterbi_fwd(
+            lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH, tab)),
+        "viterbi_fwd_plain": cuda_ms(lambda: pyin_cuda.viterbi_fwd_plain(
+            lo_v, lo_u, dense, LOG_STAY, LOG_SWITCH)),
+        "viterbi_back": cuda_ms(lambda: pyin_cuda.viterbi_back(
+            d_last, psi_v, psi_u)),
+        "viterbi_back_plain": cuda_ms(lambda: pyin_cuda.viterbi_back_plain(
+            d_last, psi_v, psi_u)),
+    }
+    if with_decode:
+        row["viterbi_decode_cuda"] = cuda_ms(
+            lambda: pyin_cuda.viterbi_decode_cuda(
+                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH, tab))
+        row["viterbi_decode_plain"] = cuda_ms(lambda: tpyin.viterbi_decode(
+            obs[0], vprob[0], dense, CFG.switch_prob))
+    row["shape"] = {"B": B, "T": T, "n": n, "w": w}
+    row["bounds"] = {k: kernel_bounds(k, B, T, n, w)
+                     for k in ("viterbi_fwd", "viterbi_back")}
+    return row
+
+
+def time_experiments(obs, vprob, tables) -> None:
+    """Every variant of the forward kernel at one shape (both destination
+    tiles, one to eight CTAs a sequence, the table in global memory), each
+    beside the one the wrapper picks."""
+    n, w, band, tab = (CFG.n_pitch_bins, tables.half_width, tables.band,
+                       tables.band_tab)
+    lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+
+    def ms(tile, cluster, in_smem=True):
+        return cuda_ms(lambda: forward_variant(lo_v, lo_u, tab, n, w, tile,
+                                               cluster, in_smem))
+
+    row = {f"tile{t}_cluster{c}": ms(t, c)
+           for t in pyin_cuda.FWD_TILES for c in pyin_cuda.FWD_CLUSTERS
+           if t != 96 or c > 1}
+    row["tile88_cluster1_table_in_global_memory"] = ms(88, 1, False)
+    row["picked_by_the_wrapper"] = cuda_ms(lambda: pyin_cuda.viterbi_fwd(
+        lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH, tab))
+    emit({"phase": "times", "what": "viterbi_fwd_experiments",
+          "B": lo_v.shape[0], "T": lo_v.shape[1], "w": w, "median_ms": row})
+
+
 def phase_times(dev, tracks, shapes) -> dict:
     e2e = {}
     for sr, (y, _) in tracks.items():
@@ -281,28 +372,11 @@ def phase_times(dev, tracks, shapes) -> dict:
 
     kernel_ms = {}
     for sr, (obs, vprob, tables) in shapes.items():
-        n, w, band = CFG.n_pitch_bins, tables.half_width, tables.band
-        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
-        dense = pyin_cuda.dense_from_band(band, n, w)
-        psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
-                                                     LOG_STAY, LOG_SWITCH)
-        row = {
-            "viterbi_fwd": cuda_ms(lambda: pyin_cuda.viterbi_fwd(
-                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH)),
-            "viterbi_fwd_plain": cuda_ms(lambda: pyin_cuda.viterbi_fwd_plain(
-                lo_v, lo_u, dense, LOG_STAY, LOG_SWITCH)),
-            "viterbi_back": cuda_ms(lambda: pyin_cuda.viterbi_back(
-                d_last, psi_v, psi_u)),
-            "viterbi_back_plain": cuda_ms(lambda: pyin_cuda.viterbi_back_plain(
-                d_last, psi_v, psi_u)),
-            "viterbi_decode_cuda": cuda_ms(lambda: pyin_cuda.viterbi_decode_cuda(
-                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH)),
-            "viterbi_decode_plain": cuda_ms(lambda: tpyin.viterbi_decode(
-                obs, vprob, dense, CFG.switch_prob)),
-        }
+        row = time_kernels(obs[None], vprob[None], tables, True)
         kernel_ms[sr] = row
-        emit({"phase": "times", "what": "viterbi", "sr": sr,
-              "T": lo_v.shape[1], "w": w, "median_ms": row})
+        emit({"phase": "times", "what": "viterbi", "sr": sr, **row["shape"],
+              "median_ms": row})
+        time_experiments(obs[None], vprob[None], tables)
 
     y, _ = tracks[22050]
     eng = AegisEngine(sample_rate=22050, device=dev)
@@ -420,16 +494,25 @@ def tile_obs(y: np.ndarray, sr: int, dev, turbo: TurboConfig):
     return obs, vprob, tables
 
 
-def phase_tiles(dev, tracks, errs, total: dict) -> dict:
-    """Returns each rate's tile observations, for the times phase."""
+def phase_tiles(dev, tracks, y10, errs, total: dict, per_call: dict) -> dict:
+    """Returns each rate's tile observations, and those of the streamed
+    mode's first slab, for the times phase; notes the counts of one tiled
+    call at each rate in ``per_call``."""
     turbo = TurboConfig()
     shapes = {}
+    # the stream's launch shape on real observations: the first 16 tiles of
+    # the 10-minute track
+    obs, vprob, tables = tile_obs(y10[:(16 * turbo.tile_frames - 1) * HOP], 22050,
+                                  dev, turbo)
+    compare_kernels("stream_slab_22050", *tpyin.decode_inputs(obs, vprob),
+                    tables.band, tables.band_tab, tables.half_width, 1.0, errs)
+    shapes["stream_slab_22050"] = (obs, vprob, tables)
     for sr, (y, _) in tracks.items():
         obs, vprob, tables = tile_obs(y, sr, dev, turbo)
         lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
         compare_kernels(f"tiles60_{sr}", lo_v, lo_u, tables.band,
-                        tables.half_width, 1.0, errs)
-        shapes[sr] = (obs, vprob, tables)
+                        tables.band_tab, tables.half_width, 1.0, errs)
+        shapes[f"tiles60_{sr}"] = (obs, vprob, tables)
         n_tiles = n_tiles_of(y, sr, turbo)
 
         v1 = AegisEngine(sample_rate=sr, device=dev)
@@ -437,6 +520,7 @@ def phase_tiles(dev, tracks, errs, total: dict) -> dict:
             lambda: v1.audio_to_midi(y, turbo_mode="tiles"))
         expect_launches(f"v1 tiles {sr}", counts, batch, 1, n_tiles)
         add_counts(total, counts)
+        per_call[f"tiles60_{sr}"] = counts
         ev = v1.extract_events(raw, None, confidence_threshold=0.3)
         ev_fused = v1.extract_events(v1.audio_to_midi(y), None,
                                      confidence_threshold=0.3)
@@ -530,7 +614,7 @@ def raw_of(out: dict) -> dict:
     return {**out, "f0": np.nan_to_num(np.asarray(out["f0"], np.float64))}
 
 
-def phase_stream(dev, y10, truth10, total: dict) -> None:
+def phase_stream(dev, y10, truth10, total: dict, per_call: dict) -> None:
     audio = AudioConfig(sample_rate=22050)
     v1 = AegisEngine(sample_rate=22050, device=dev)
     fin = AegisFinancialEngine(sample_rate=22050, device=dev)
@@ -538,6 +622,7 @@ def phase_stream(dev, y10, truth10, total: dict) -> None:
         lambda: v1.audio_to_midi(y10, turbo_mode="stream"))
     expect_launches("v1 stream", counts, batch, 2, 16)
     add_counts(total, counts)
+    per_call["stream_slab_22050"] = counts
     ev = v1.extract_events(raw, None, confidence_threshold=0.3)
     a, counts, batch = run_counted(
         lambda: fin.analyze(y10, turbo_mode="stream"))
@@ -598,26 +683,11 @@ def phase_times2(dev, tracks, folder: str, y10, tile_shapes) -> dict:
               "realtime_factor": audio_s / (ms / 1000.0)})
 
     kernel_ms = {}
-    for sr, (obs, vprob, tables) in tile_shapes.items():
-        n, w, band = CFG.n_pitch_bins, tables.half_width, tables.band
-        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
-        dense = pyin_cuda.dense_from_band(band, n, w)
-        psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
-                                                     LOG_STAY, LOG_SWITCH)
-        row = {
-            "viterbi_fwd": cuda_ms(lambda: pyin_cuda.viterbi_fwd(
-                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH)),
-            "viterbi_fwd_plain": cuda_ms(lambda: pyin_cuda.viterbi_fwd_plain(
-                lo_v, lo_u, dense, LOG_STAY, LOG_SWITCH)),
-            "viterbi_back": cuda_ms(lambda: pyin_cuda.viterbi_back(
-                d_last, psi_v, psi_u)),
-            "viterbi_back_plain": cuda_ms(lambda: pyin_cuda.viterbi_back_plain(
-                d_last, psi_v, psi_u)),
-        }
-        kernel_ms[sr] = row
-        emit({"phase": "times", "what": "viterbi_tiles", "sr": sr,
-              "B": lo_v.shape[0], "T": lo_v.shape[1], "w": w,
-              "median_ms": row})
+    for key, (obs, vprob, tables) in tile_shapes.items():
+        row = time_kernels(obs, vprob, tables, False)
+        kernel_ms[key] = row
+        emit({"phase": "times", "what": "viterbi_tiles", "of": key,
+              **row["shape"], "median_ms": row})
 
     fin.analyze(y)
     torch.cuda.synchronize()
@@ -676,11 +746,14 @@ def main() -> int:
               for sr in (22050, 44100)}
     errs: dict = {}
     shapes = timed("kernels", phase_kernels, dev, tracks, errs)
-    launches = timed("slice", phase_slice, dev, tracks)
-    kernel_ms = timed("times", phase_times, dev, tracks, shapes)[22050]
+    per_call: dict = {}   # a main-path call -> each kernel's launches in it
+    launches = timed("slice", phase_slice, dev, tracks, per_call)
+    fused_ms = timed("times", phase_times, dev, tracks, shapes)
     total = dict(launches)
     timed("financial", phase_financial, dev, tracks, total)
-    tile_shapes = timed("tiles", phase_tiles, dev, tracks, errs, total)
+    y10, truth10 = generate_bench_track(600.0, sr=22050, return_truth=True)
+    tile_shapes = timed("tiles", phase_tiles, dev, tracks, y10, errs, total,
+                        per_call)
     with tempfile.TemporaryDirectory() as folder:
         ys = []
         for seed in (42, 43, 44, 45):
@@ -689,24 +762,45 @@ def main() -> int:
                       22050)
             ys.append(y)
         timed("batch", phase_batch, dev, folder, ys, total)
-        y10, truth10 = generate_bench_track(600.0, sr=22050, return_truth=True)
-        timed("stream", phase_stream, dev, y10, truth10, total)
+        timed("stream", phase_stream, dev, y10, truth10, total, per_call)
         tiles_ms = timed("times_modes", phase_times2, dev, tracks, folder, y10,
                          tile_shapes)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
-    b_tiles = {sr: sh[0].shape[0] for sr, sh in tile_shapes.items()}
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": total[name],
-         "max_abs_err": errs[name], "ms": kernel_ms[name],
-         "plain_ms": kernel_ms[f"{name}_plain"],
-         "shape": "B=1, T=2625, n=450, w=101 (60 s at 22050 Hz)",
-         "ms_tiles": {str(sr): tiles_ms[sr][name] for sr in tiles_ms},
-         "plain_ms_tiles": {str(sr): tiles_ms[sr][f"{name}_plain"]
-                            for sr in tiles_ms},
-         "shape_tiles": {str(sr): f"B={b_tiles[sr]}, T=1152, n=450"
-                         for sr in b_tiles}}
-        for name in ("viterbi_fwd", "viterbi_back")]})
+
+    # every main-path shape of the kernels: the call that launches it, that
+    # call's own launch counts in this run, and the kernels' times at its shape
+    by_shape = [
+        ("audio_to_midi fused, 60 s at 22 050 Hz", per_call["bench60_22050"],
+         fused_ms[22050]),
+        ("audio_to_midi fused, 60 s at 44 100 Hz", per_call["bench60_44100"],
+         fused_ms[44100]),
+        ("turbo_mode tiles, 60 s at 22 050 Hz", per_call["tiles60_22050"],
+         tiles_ms["tiles60_22050"]),
+        ("turbo_mode tiles, 60 s at 44 100 Hz", per_call["tiles60_44100"],
+         tiles_ms["tiles60_44100"]),
+        ("turbo_mode stream, 10 minutes at 22 050 Hz in slabs of 16 tiles",
+         per_call["stream_slab_22050"], tiles_ms["stream_slab_22050"]),
+    ]
+
+    def entry(name: str) -> dict:
+        first = by_shape[0][2]
+        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": REPLACES[name], "launches": total[name],
+                "max_abs_err": errs[name], "ms": first[name],
+                "plain_ms": first[f"{name}_plain"],
+                "bound_ms": first["bounds"][name]["bound_ms"],
+                "bound_by": first["bounds"][name]["bound_by"],
+                "library_ms": None,
+                "shapes": [{"path": path, **row["shape"],
+                            "launches_per_call": counts[name],
+                            "ms": row[name],
+                            "plain_ms": row[f"{name}_plain"],
+                            "bound_ms": row["bounds"][name]["bound_ms"],
+                            "bound_by": row["bounds"][name]["bound_by"],
+                            "library_ms": None}
+                           for path, counts, row in by_shape]}
+
+    emit({"kernels": [entry("viterbi_fwd"), entry("viterbi_back")]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from aegis_tpu.config import PyinConfig
+from aegis_tpu_torch.config import PyinConfig
 from aegis_tpu_torch.core import pyin_cuda
-from aegis_tpu_torch.core.tables import log_transition_band
+from aegis_tpu_torch.core.tables import band_class_table, log_transition_band
 from aegis_tpu_torch.tools.signal_gen import wandering_pitch_obs
 
 CFG = PyinConfig()
@@ -20,8 +20,8 @@ N = CFG.n_pitch_bins
 LOG_STAY = float(np.log1p(-CFG.switch_prob))
 LOG_SWITCH = float(np.log(CFG.switch_prob))
 
-# (half-width, batch of (T, seed, center, step, spread, jumps)); w = 150 is
-# wider than the TPU kernel's 256 Hankel rows could hold
+# (half-width, batch of (T, seed, center, step, spread, jumps)[, states]);
+# w = 150 is wider than the TPU kernel's 256 Hankel rows could hold
 CASES = {
     "w101": (101, [(40, 11, 200, 8, (-2, -1, 0, 1, 2), True)]),
     "w51": (51, [(32, 21, 150, 4, (0,), False)]),
@@ -29,6 +29,16 @@ CASES = {
                           (48, 6, 100, 3, (0,), True),
                           (48, 7, 400, 9, (0, 1), False)]),
     "t1": (101, [(1, 3, 200, 8, (0,), False)]),
+    "t2_batch2": (51, [(2, 3, 200, 8, (0,), False),
+                       (2, 4, 100, 8, (0, 1), True)]),
+    # fewer states than one band: every source is clipped on both sides
+    "narrow_n150_w101": (101, [(70, 8, 75, 8, (-1, 0, 1), True),
+                               (70, 9, 40, 5, (0,), True)], 150),
+    # a score table too large for shared memory: read from global memory
+    "wide_w200": (200, [(40, 12, 220, 20, (-1, 0, 1), True)]),
+    # the streamed mode's slab: sixteen haloed tiles at 22 050 Hz
+    "stream_b16_w101": (101, [(1152, 50 + i, 60 + 20 * i, 6, (-1, 0, 1), True)
+                              for i in range(16)]),
     # a tile batch as the tiled program launches it at 44 100 Hz: six
     # haloed 1024 + 2*64 frame tiles, one CTA each
     "tiles_b6_w51": (51, [(1152, 30 + i, 100 + 50 * i, 6, (-1, 0, 1), True)
@@ -46,17 +56,20 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_viterbi_kernels_equal_plain(cuda, case):
-    width, seqs = CASES[case]
+    width, seqs, *states = CASES[case]
+    N = states[0] if states else CFG.n_pitch_bins
     pairs = [wandering_pitch_obs(T, N, *rest) for T, *rest in seqs]
     obs = torch.from_numpy(np.stack([o for o, _ in pairs])).to(cuda)
     vprob = torch.from_numpy(np.stack([v for _, v in pairs])).to(cuda)
     lo_v = torch.log(obs + 1e-30).contiguous()
     lo_u = torch.log((1.0 - vprob) / N + 1e-30).contiguous()
-    band = torch.from_numpy(log_transition_band(N, width)).to(cuda)
+    band_np = log_transition_band(N, width)
+    band = torch.from_numpy(band_np).to(cuda)
+    tab = torch.from_numpy(band_class_table(band_np, N, width)).to(cuda)
 
     before = dict(pyin_cuda.LAUNCHES)
     psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, N, width,
-                                                 LOG_STAY, LOG_SWITCH)
+                                                 LOG_STAY, LOG_SWITCH, tab)
     states = pyin_cuda.viterbi_back(d_last, psi_v, psi_u)
     torch.cuda.synchronize()
     assert pyin_cuda.LAUNCHES["viterbi_fwd"] == before["viterbi_fwd"] + 1
@@ -68,6 +81,41 @@ def test_viterbi_kernels_equal_plain(cuda, case):
     assert torch.equal(psi_v, p_v) and torch.equal(psi_u, p_u)
     assert torch.equal(d_last, p_last)
     assert torch.equal(states, pyin_cuda.viterbi_back_plain(p_last, p_v, p_u))
+    # the table built from the band inside the wrapper gives the same
+    no_tab = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, N, width, LOG_STAY,
+                                   LOG_SWITCH)
+    assert all(torch.equal(a, b) for a, b in zip(no_tab, (p_v, p_u, p_last)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", pyin_cuda.FWD_TILES)
+def test_every_forward_variant_equals_plain(cuda, tile):
+    """Each destination tile the library is built with, at every cluster
+    size, and the table read from global memory, on the tiled program's shape at
+    22 050 Hz."""
+    width = 101
+    pairs = [wandering_pitch_obs(300, N, 70 + b, 150 + 40 * b, 8,
+                                 (-2, -1, 0, 1, 2), True) for b in range(3)]
+    obs = torch.from_numpy(np.stack([o for o, _ in pairs])).to(cuda)
+    vprob = torch.from_numpy(np.stack([v for _, v in pairs])).to(cuda)
+    lo_v = torch.log(obs + 1e-30).contiguous()
+    lo_u = torch.log((1.0 - vprob) / N + 1e-30).contiguous()
+    band_np = log_transition_band(N, width)
+    band = torch.from_numpy(band_np).to(cuda)
+    tab = torch.from_numpy(band_class_table(band_np, N, width)).to(cuda)
+    plain = pyin_cuda.viterbi_fwd_plain(
+        lo_v, lo_u, pyin_cuda.dense_from_band(band, N, width),
+        LOG_STAY, LOG_SWITCH)
+    clusters = [c for c in pyin_cuda.FWD_CLUSTERS if tile != 96 or c > 1]
+    smem = pyin_cuda.max_shared_memory(cuda)
+    for in_smem, cluster in [(True, c) for c in clusters] + [
+            (False, clusters[0])]:
+        got = pyin_cuda._launch_fwd(lo_v, lo_u, tab, N, width, LOG_STAY,
+                                    LOG_SWITCH, tile, cluster,
+                                    smem if in_smem else 0)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, plain)), (
+            in_smem, cluster)
 
 
 @pytest.mark.cuda
@@ -83,3 +131,65 @@ def test_viterbi_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="states"):
         wide = torch.zeros((1, 8, 600), device=cuda)
         pyin_cuda.viterbi_fwd(wide, lo_u, band, 600, 51, 0.0, 0.0)
+    with pytest.raises(ValueError, match="tab"):   # a table of another width
+        other = torch.from_numpy(band_class_table(
+            log_transition_band(N, 101), N, 101)).to(cuda)
+        pyin_cuda.viterbi_fwd(lo_v, lo_u, band, N, 51, 0.0, 0.0, other)
+    with pytest.raises(ValueError, match="frames"):
+        long = torch.zeros((1, pyin_cuda.MAX_FRAMES + 1, 2), device=cuda)
+        pyin_cuda.viterbi_fwd(long, long[:, :, 0].contiguous(),
+                              torch.zeros((2, 1), device=cuda), 2, 0, 0.0, 0.0)
+    tab = torch.from_numpy(band_class_table(
+        log_transition_band(N, 51), N, 51)).to(cuda)
+    with pytest.raises(ValueError, match="tile"):
+        pyin_cuda._launch_fwd(lo_v, lo_u, tab, N, 51, 0.0, 0.0, 7, 1, 0)
+
+
+def _changed(lo_v, lo_u, how):
+    lo_v, lo_u = lo_v.clone(), lo_u.clone()
+    T, n = lo_v.shape[1:]
+    if how == "one_observation_zero":
+        lo_v[:, T // 2, n // 3] = 0.0
+    elif how == "all_above_zero":
+        lo_v += 9.0
+        lo_u += 9.0
+    elif how == "half_the_states_minus_inf":
+        lo_v[:, :, : n // 2] = -float("inf")
+    elif how == "a_frame_of_minus_inf":
+        lo_v[:, 2] = -float("inf")
+        lo_u[:, 2] = -float("inf")
+    return lo_v, lo_u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["one_observation_zero", "all_above_zero",
+                                 "half_the_states_minus_inf",
+                                 "a_frame_of_minus_inf"])
+def test_forward_kernel_takes_scores_that_are_no_log_probabilities(cuda, how):
+    """Scores of either sign give the plain version's results, and -inf
+    (a destination none of whose in-band sources scores, a whole frame
+    without a score) leaves the first-index rule whole."""
+    width = 51
+    pairs = [wandering_pitch_obs(90, N, 80 + b, 120 + 90 * b, 8,
+                                 (-2, -1, 0, 1, 2), True) for b in range(2)]
+    obs = torch.from_numpy(np.stack([o for o, _ in pairs])).to(cuda)
+    vprob = torch.from_numpy(np.stack([v for _, v in pairs])).to(cuda)
+    lo_v, lo_u = _changed(torch.log(obs + 1e-30),
+                          torch.log((1.0 - vprob) / N + 1e-30), how)
+    band_np = log_transition_band(N, width)
+    band = torch.from_numpy(band_np).to(cuda)
+    tab = torch.from_numpy(band_class_table(band_np, N, width)).to(cuda)
+    plain = pyin_cuda.viterbi_fwd_plain(
+        lo_v, lo_u, pyin_cuda.dense_from_band(band, N, width),
+        LOG_STAY, LOG_SWITCH)
+    got = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, N, width, LOG_STAY,
+                                LOG_SWITCH, tab)
+    one_cta = pyin_cuda._launch_fwd(lo_v, lo_u, tab, N, width, LOG_STAY,
+                                    LOG_SWITCH, 88, 1,
+                                    pyin_cuda.max_shared_memory(cuda))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    assert all(torch.equal(a, b) for a, b in zip(one_cta, plain))
+    states = pyin_cuda.viterbi_back(*got[2:], *got[:2])
+    assert torch.equal(states, pyin_cuda.viterbi_back_plain(
+        plain[2], plain[0], plain[1]))

@@ -9,6 +9,7 @@ import torch
 
 from aegis_tpu.config import AudioConfig, PyinConfig
 from aegis_tpu.core import dsp as jdsp
+from aegis_tpu_torch import config as tconfig
 from aegis_tpu_torch.core import dsp as tdsp
 from aegis_tpu_torch.core.tables import tables_from_numpy
 
@@ -20,7 +21,8 @@ CPU = torch.device("cpu")
 
 
 def _tables(sr):
-    return tables_from_numpy(AudioConfig(sample_rate=sr), PyinConfig(), CPU)
+    return tables_from_numpy(tconfig.AudioConfig(sample_rate=sr),
+                             tconfig.PyinConfig(), CPU)
 
 
 @pytest.mark.parametrize("frame_length,hop,mode", [

@@ -4,6 +4,7 @@ silent success without a card)."""
 
 import io
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -20,6 +21,7 @@ from aegis_tpu.io import write_wav
 from aegis_tpu.midi.decode import midi_to_notes
 from aegis_tpu.tools.signal_gen import generate_scale_benchmark, generate_test_track
 from aegis_tpu.verify.metrics import events_to_seconds, note_event_f1
+from aegis_tpu_torch import config as tconfig
 from aegis_tpu_torch.core.analyze import _V1_ROWS, run_analyze
 from aegis_tpu_torch.engine.engine import AegisEngine
 from aegis_tpu_torch.engine.financial import AegisFinancialEngine
@@ -58,7 +60,8 @@ def test_run_analyze_rows_match_jax(transport):
     y, _ = generate_test_track(sr=22050)
     audio, cfg = AudioConfig(sample_rate=22050), PyinConfig()
     ref = jax_run_analyze(y, audio, cfg, transport=transport)
-    got = run_analyze(y, audio, cfg, transport=transport)
+    got = run_analyze(y, tconfig.AudioConfig(sample_rate=22050),
+                      tconfig.PyinConfig(), transport=transport, device="cpu")
     for k in _V1_ROWS:
         assert got[k].shape == ref[k].shape, k
         if k in ("voiced_flag", "rake_mask"):
@@ -185,11 +188,11 @@ def test_port_never_imports_jax():
         "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"
         "import numpy as np, io\n"
-        "from aegis_tpu.io import write_wav\n"
+        "from aegis_tpu_torch.io import write_wav\n"
         "from aegis_tpu_torch.engine.engine import AegisEngine\n"
         "from aegis_tpu_torch.engine.financial import AegisFinancialEngine\n"
         "from aegis_tpu_torch.engine.folder import transcribe_folder\n"
-        "from aegis_tpu.tools.signal_gen import generate_test_track\n"
+        "from aegis_tpu_torch.tools.signal_gen import generate_test_track\n"
         "y = generate_test_track(sr=22050)[0][:2 * 22050]\n"
         "eng = AegisEngine(sample_rate=22050, device='cpu')\n"
         "for mode in (False, 'tiles', 'stream'):\n"
@@ -212,6 +215,243 @@ def test_port_never_imports_jax():
                                "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.splitlines()[-1].startswith("ok")
+
+
+# what a user of the port runs, on the CPU: fused v1, tiles, stream,
+# financial, the folder sweep
+_PORT_PATHS = (
+    "import io, os, tempfile\n"
+    "import numpy as np\n"
+    "from aegis_tpu_torch.engine.engine import AegisEngine\n"
+    "from aegis_tpu_torch.engine.financial import AegisFinancialEngine\n"
+    "from aegis_tpu_torch.engine.folder import transcribe_folder\n"
+    "from aegis_tpu_torch.io import write_wav\n"
+    "from aegis_tpu_torch.midi import midi_to_notes\n"
+    "from aegis_tpu_torch.tools.signal_gen import generate_test_track\n"
+    "y = generate_test_track(sr=22050)[0][:2 * 22050]\n"
+    "eng = AegisEngine(sample_rate=22050, device='cpu')\n"
+    "for mode in (False, 'tiles', 'stream'):\n"
+    "    raw = eng.audio_to_midi(y, turbo_mode=mode)\n"
+    "    buf = io.BytesIO()\n"
+    "    events = eng.extract_events(raw, buf, confidence_threshold=0.5,\n"
+    "                                bpm='auto')\n"
+    "    assert events and midi_to_notes(buf.getvalue()), mode\n"
+    "fin = AegisFinancialEngine(device='cpu')\n"
+    "d = tempfile.mkdtemp()\n"
+    "write_wav(os.path.join(d, 'a.wav'), y, 22050)\n"
+    "assert fin.audio_to_midi_financial(y, os.path.join(d, 'f.mid'))\n"
+    "assert fin.analyze(y, turbo_mode='stream')['trend'].shape == raw['f0'].shape\n"
+    "for engine in ('v1', 'financial'):\n"
+    "    assert transcribe_folder(d, engine=engine, device='cpu')\n")
+
+
+def test_port_never_imports_the_jax_package():
+    """With an import system that refuses ``aegis_tpu``, ``aegis_tpu.*`` and
+    jax, the port still runs every path it has."""
+    code = (
+        "import sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('aegis_tpu', 'jax', 'jaxlib'):\n"
+        "            raise ImportError('refused: ' + name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        + _PORT_PATHS +
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('aegis_tpu', 'jax', 'jaxlib')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(events))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(REPO),
+                               "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1].startswith("ok")
+
+
+def test_no_port_file_names_the_jax_package_in_an_import():
+    """Static: no file of the port, nor chip_smoke.py, imports aegis_tpu or
+    jax, at the top or inside a function."""
+    pat = re.compile(
+        r"^\s*(from|import)\s+(aegis_tpu|jax|jaxlib)(\.|\s|$)"
+        r"|import_module\(\s*[\"'](aegis_tpu|jax)[.\"']"
+        r"|__import__\(\s*[\"'](aegis_tpu|jax)[.\"']", re.M)
+    files = sorted((REPO / "aegis_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 30
+    bad = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
+
+
+def _port_and_original(name):
+    import importlib
+    return (importlib.import_module(f"aegis_tpu_torch.{name}"),
+            importlib.import_module(f"aegis_tpu.{name}"))
+
+
+def _events_for_copies():
+    return [{"note": 40 + 5 * k, "start": 10 * k, "end": 10 * k + 8,
+             "confidence": 0.9 - 0.1 * k, "velocity": 100 - 7 * k,
+             "track": "main" if k % 2 else "safe", "rms_energy": -12.0 - k,
+             "technique": (None, "bend", "vibrato", "hammer_on")[k % 4],
+             "slope": 0.06 * (k % 3), "financial_artic": None,
+             "financial_slide": None} for k in range(6)]
+
+
+def _copy_config():
+    t, j = _port_and_original("config")
+    import dataclasses
+    for cls in ("AudioConfig", "PyinConfig", "TurboConfig"):
+        a, b = getattr(t, cls)(), getattr(j, cls)()
+        assert dataclasses.asdict(a) == dataclasses.asdict(b), cls
+        assert hash(a) == hash(getattr(t, cls)())
+    for sr in (22050, 44100, 48000):
+        assert (t.PyinConfig().transition_width(sr, 512)
+                == j.PyinConfig().transition_width(sr, 512))
+        assert t.AudioConfig(sample_rate=sr).n_frames(12345) == \
+            j.AudioConfig(sample_rate=sr).n_frames(12345)
+    assert t.midi_to_hz(57) == j.midi_to_hz(57)
+
+
+def _copy_filters():
+    t, j = _port_and_original("core.filters")
+    np.testing.assert_array_equal(t.hann_window(2048), j.hann_window(2048))
+    np.testing.assert_array_equal(t.mel_filterbank(22050, 2048, 128),
+                                  j.mel_filterbank(22050, 2048, 128))
+    for a, b in zip(t.dft_matrices(256), j.dft_matrices(256)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _copy_ref():
+    for name, calls in {
+            "ref.dsp_ref": [("amplitude_to_db", (np.linspace(1e-6, 1, 50),)),
+                            ("hz_to_midi", (np.linspace(80, 900, 40),))],
+            "ref.pyin_ref": [("local_transition", (60, 7)),
+                             ("local_transition", (9, 7))],
+            "ref.trend_ref": [("_savgol_kernel", (11, 3)),
+                              ("rsi", (np.sin(np.arange(80.0)),)),
+                              ("adaptive_confidence_threshold",
+                               (np.linspace(0, 1, 30),))]}.items():
+        t, j = _port_and_original(name)
+        for fn, args in calls:
+            np.testing.assert_array_equal(getattr(t, fn)(*args),
+                                          getattr(j, fn)(*args))
+    t, j = _port_and_original("ref.pyin_ref")
+    for a, b in zip(t.beta_threshold_probs(tconfig.PyinConfig()),
+                    j.beta_threshold_probs(PyinConfig())):
+        np.testing.assert_array_equal(a, b)
+    t, j = _port_and_original("ref.trend_ref")
+    assert (t.ARTIC_NAMES, t.SLIDE_NAMES) == (j.ARTIC_NAMES, j.SLIDE_NAMES)
+
+
+def _copy_signal_gen():
+    t, j = _port_and_original("tools.signal_gen")
+    for fn, kw in (("generate_test_track", {"sr": 22050}),
+                   ("generate_scale_benchmark", {"sr": 22050}),
+                   ("generate_bench_track", {"duration": 3.0, "sr": 22050,
+                                             "return_truth": True})):
+        for a, b in zip(getattr(t, fn)(**kw), getattr(j, fn)(**kw)):
+            if isinstance(a, np.ndarray):
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b
+
+
+def _copy_io(tmp_path):
+    t, j = _port_and_original("io")
+    y = generate_test_track(sr=22050)[0][:22050]
+    t.write_wav(str(tmp_path / "t.wav"), y, 22050)
+    j.write_wav(str(tmp_path / "j.wav"), y, 22050)
+    assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+    for sr in (22050, 16000):   # as stored, and resampled
+        (a, ra), (b, rb) = (m.load_audio(str(tmp_path / "t.wav"), sr=sr)
+                            for m in (t, j))
+        assert ra == rb
+        np.testing.assert_array_equal(a, b)
+
+
+def _copy_midi():
+    t, j = _port_and_original("midi")
+    events = _events_for_copies()
+    for fn, kw in (("events_to_midi", {"bpm": 96}), ("events_to_midi", {}),
+                   ("events_to_midi_financial", {})):
+        a, b = io.BytesIO(), io.BytesIO()
+        getattr(t, fn)([dict(e) for e in events], 22050, 512, output=a, **kw)
+        getattr(j, fn)([dict(e) for e in events], 22050, 512, output=b, **kw)
+        assert a.getvalue() == b.getvalue() and a.getvalue()[:4] == b"MThd"
+        assert t.midi_to_notes(a.getvalue()) == j.midi_to_notes(b.getvalue())
+
+
+def _copy_metrics_tempo_harmony():
+    t, j = _port_and_original("verify.metrics")
+    events = _events_for_copies()
+    sa, sb = (m.events_to_seconds(events, 22050, 512) for m in (t, j))
+    assert sa == sb
+    assert t.note_event_f1(sa, sb[:-1]) == j.note_event_f1(sa, sb[:-1])
+    t, j = _port_and_original("core.tempo")
+    env = np.abs(np.sin(np.arange(900) * 2 * np.pi / 21.5)) ** 8
+    raw = {"onset_env": env}
+    assert t.estimate_bpm(raw, 22050, 512) == j.estimate_bpm(raw, 22050, 512)
+    assert t.parse_bpm("auto") == j.parse_bpm("auto")
+    t, j = _port_and_original("harmony.key")
+    notes = np.array([60, 62, 64, 65, 67, 69, 71, 72, 61, 64, 67])
+    assert t.HarmonicAnalyzer().detect_key(notes) == \
+        j.HarmonicAnalyzer().detect_key(notes)
+
+
+def _copy_events_helpers():
+    """The copied extractors and helpers on the JAX engine's own rows."""
+    t, j = _port_and_original("core.events")
+    y = generate_scale_benchmark(sr=22050)[0]
+    raw = JaxEngine(sample_rate=22050, backend="device").audio_to_midi(y)
+    args = (raw["rake_mask"], raw["f0"], raw["voiced_flag"],
+            raw["voiced_probs"], raw["rms"], 22050, 512)
+    for kw in ({}, {"onset_env": raw["onset_env"]},
+               {"onset_env": raw["onset_env"], "onset_fwd_snap_ms": 60.0}):
+        assert t.extract_events_v1(*args, confidence_threshold=0.3, **kw) == \
+            j.extract_events_v1(*args, confidence_threshold=0.3, **kw)
+    ev = j.extract_events_v1(*args, confidence_threshold=0.3)
+    many = [dict(e, start=e["start"] + 3 * k, end=e["end"] + 3 * k)
+            for k in range(4) for e in ev]
+    assert t.filter_ghost_notes_rsi(many, 22050, 512, 55.0) == \
+        j.filter_ghost_notes_rsi(many, 22050, 512, 55.0)
+    a = t.apply_harmonic_context([dict(e) for e in ev], 22050, 512, 0.5)
+    b = j.apply_harmonic_context([dict(e) for e in ev], 22050, 512, 0.5)
+    assert a == b
+
+
+def _copy_native(monkeypatch):
+    """The C++ host cores against their NumPy twins, and a library of their
+    own beside the JAX package's."""
+    from aegis_tpu_torch import native as tnat
+    from aegis_tpu_torch.core import events as tev
+    from aegis_tpu_torch.core import trend_fast
+    from aegis_tpu_torch.ref import trend_ref
+    import aegis_tpu.native as jnat
+    assert tnat._cache_dir() != jnat._cache_dir()
+    if tnat.get_lib() is None:
+        pytest.skip("no C++ compiler: the NumPy twins are the only path")
+    y = generate_test_track(sr=22050)[0]
+    raw = AegisEngine(sample_rate=22050, device="cpu").audio_to_midi(y)
+    args = (raw["rake_mask"], raw["f0"], raw["voiced_flag"],
+            raw["voiced_probs"], raw["rms"], 22050, 512)
+    fast = tev.extract_events_v1(*args, confidence_threshold=0.3)
+    monkeypatch.setattr(tnat, "segment_events_v1_native",
+                        lambda *a, **k: None)
+    assert tev.extract_events_v1(*args, confidence_threshold=0.3) == fast
+    x = np.abs(np.sin(np.arange(200.0) / 7.0)) * 5.0
+    np.testing.assert_array_equal(trend_fast.rsi(x), trend_ref.rsi(x))
+
+
+@pytest.mark.parametrize("what", [
+    "config", "filters", "ref", "signal_gen", "io", "midi",
+    "metrics_tempo_harmony", "events_helpers", "native"])
+def test_copy_equals_its_original(what, tmp_path, monkeypatch):
+    """The port keeps its own copy of each host module it uses; a copy that
+    drifts from ``aegis_tpu``'s (other arrays, other MIDI bytes, other
+    events) fails here."""
+    fn = globals()[f"_copy_{what}"]
+    kw = {"io": {"tmp_path": tmp_path}, "native": {"monkeypatch": monkeypatch}}
+    fn(**kw.get(what, {}))
 
 
 def test_cuda_engine_raises_without_a_card(monkeypatch):

@@ -14,6 +14,7 @@ from aegis_tpu.engine.financial import AegisFinancialEngine as JaxFinancial
 from aegis_tpu.midi.decode import midi_to_notes
 from aegis_tpu.ref.pipeline_ref import run_analyze_ref
 from aegis_tpu.tools.signal_gen import generate_scale_benchmark, generate_test_track
+from aegis_tpu_torch import config as tconfig
 from aegis_tpu_torch.core import masks as tmasks
 from aegis_tpu_torch.core.analyze import _FIN_ROWS, run_analyze
 from aegis_tpu_torch.engine.financial import AegisFinancialEngine
@@ -25,6 +26,8 @@ torch.set_num_threads(1)
 
 SR = 22050
 AUDIO, CFG = AudioConfig(sample_rate=SR), PyinConfig()
+# the port is handed its own config classes
+TAUDIO, TCFG = tconfig.AudioConfig(sample_rate=SR), tconfig.PyinConfig()
 CLIPS = {"ks": lambda: generate_test_track(sr=SR)[0],
          "scale": lambda: generate_scale_benchmark(sr=SR)[0]}
 
@@ -122,8 +125,8 @@ def test_financial_rows_match_jax(clip, name, transport, filters):
     y = clip(name)
     ref = jax_run_analyze(y, AUDIO, CFG, financial=True, transport=transport,
                           use_guitar_filters=filters)
-    got = run_analyze(y, AUDIO, CFG, financial=True, transport=transport,
-                      use_guitar_filters=filters)
+    got = run_analyze(y, TAUDIO, TCFG, financial=True, transport=transport,
+                      use_guitar_filters=filters, device="cpu")
     for k in _FIN_ROWS:
         g, r = np.asarray(got[k]), np.asarray(ref[k])
         assert g.shape == r.shape, k
@@ -150,7 +153,7 @@ def test_distortion_score_of_silence():
     exactly 0 and its score 0; the float64 oracle's dB is ~-7e-6 and its
     score 1.15, the JAX program's -3.7e-6 and 1.37 (ROADMAP Queue 3)."""
     y = np.zeros(30000, np.float32)
-    got = run_analyze(y, AUDIO, CFG, financial=True)
+    got = run_analyze(y, TAUDIO, TCFG, financial=True, device="cpu")
     ref = run_analyze_ref(y, AUDIO, CFG, financial=True)
     assert (got["mel_db"] == 0.0).all()
     assert float(got["distortion_score"]) == 0.0

@@ -16,9 +16,14 @@ from aegis_tpu.config import AudioConfig, PyinConfig
 from aegis_tpu.core import pyin as jpyin
 from aegis_tpu.core import pyin_pallas as vp
 from aegis_tpu.ref.pyin_ref import local_transition
+from aegis_tpu_torch.config import AudioConfig as TAudioConfig
+from aegis_tpu_torch.config import PyinConfig as TPyinConfig
 from aegis_tpu_torch.core import pyin as tpyin
 from aegis_tpu_torch.core import pyin_cuda
-from aegis_tpu_torch.core.tables import log_transition_band, tables_from_numpy
+from aegis_tpu_torch.core.tables import (LOG_FLOOR, band_class_table,
+                                         expand_class_table,
+                                         log_transition_band, row_classes,
+                                         tables_from_numpy)
 from aegis_tpu_torch.tools.signal_gen import wandering_pitch_obs
 
 # One torch thread per process: the suite runs in parallel pytest workers,
@@ -26,6 +31,7 @@ from aegis_tpu_torch.tools.signal_gen import wandering_pitch_obs
 torch.set_num_threads(1)
 
 CFG = PyinConfig()
+TCFG = TPyinConfig()    # the port is handed its own class
 N = CFG.n_pitch_bins
 SR = 22050
 CPU = torch.device("cpu")
@@ -68,14 +74,14 @@ def _jax_scan(obs, vprob, width):
 
 def test_frames_match_jax(two_tone_22k, yin_22k):
     y, _ = two_tone_22k
-    got = tpyin.extract_pyin_frames(_t(y), 512, CFG).numpy()
+    got = tpyin.extract_pyin_frames(_t(y), 512, TCFG).numpy()
     np.testing.assert_array_equal(got, yin_22k[0])
 
 
 def test_cmndf_matches_jax(yin_22k):
     frames, yin = yin_22k
-    got = tpyin.cmndf_frames(_t(frames), CFG.win_length, CFG.min_period(SR),
-                             CFG.max_period(SR)).numpy()
+    got = tpyin.cmndf_frames(_t(frames), TCFG.win_length, TCFG.min_period(SR),
+                             TCFG.max_period(SR)).numpy()
     assert got.shape == yin.shape
     np.testing.assert_allclose(got, yin, atol=1e-4)
 
@@ -93,8 +99,8 @@ def test_trough_probabilities_match_jax(yin_22k):
     _, yin = yin_22k
     mask = np.asarray(jpyin.trough_mask(yin))
     ref = np.asarray(jpyin.trough_probabilities(yin, mask, CFG))
-    tables = tables_from_numpy(AudioConfig(sample_rate=SR), CFG, CPU)
-    got = tpyin.trough_probabilities(_t(yin), _t(mask), CFG, tables).numpy()
+    tables = tables_from_numpy(TAudioConfig(sample_rate=SR), TCFG, CPU)
+    got = tpyin.trough_probabilities(_t(yin), _t(mask), TCFG, tables).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
@@ -110,15 +116,15 @@ def test_observations_match_jax(yin_22k):
     ref_obs, ref_vp = (np.asarray(a) for a in jpyin.observations(
         probs, shifts, SR, CFG.min_period(SR), CFG))
     obs, vprob = tpyin.observations(_t(probs), _t(shifts), SR,
-                                    CFG.min_period(SR), CFG)
+                                    TCFG.min_period(SR), TCFG)
     np.testing.assert_allclose(obs.numpy(), ref_obs, atol=1e-6)
     np.testing.assert_allclose(vprob.numpy(), ref_vp, atol=1e-6)
 
 
 def test_observations_deterministic(yin_22k):
     probs, shifts = _trough_inputs(yin_22k[1])
-    runs = [tpyin.observations(_t(probs), _t(shifts), SR, CFG.min_period(SR),
-                               CFG) for _ in range(2)]
+    runs = [tpyin.observations(_t(probs), _t(shifts), SR, TCFG.min_period(SR),
+                               TCFG) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -131,7 +137,7 @@ def test_viterbi_plain_equals_jax_scan(case):
     ref = _jax_scan(obs, vprob, width)
     log_local = _t(np.log(local_transition(N, width) + 1e-30).astype(np.float32))
     got = tpyin.viterbi_decode(_t(obs), _t(vprob), log_local,
-                               CFG.switch_prob).numpy()
+                               TCFG.switch_prob).numpy()
     np.testing.assert_array_equal(got, ref)
 
 
@@ -148,7 +154,7 @@ def test_viterbi_plain_vs_jax_pallas_interpret(case):
         interpret=True))
     got = tpyin.viterbi_decode(
         _t(obs), _t(vprob), _t(np.log(trans + 1e-30).astype(np.float32)),
-        CFG.switch_prob).numpy()
+        TCFG.switch_prob).numpy()
     assert (got == pallas).mean() > 0.99
 
 
@@ -160,6 +166,130 @@ def test_band_table_is_the_dense_matrix(width):
         pyin_cuda.dense_from_band(band, N, width).numpy(), dense)
 
 
+# (n, w): both rates of the main path, 48 kHz's width, one n < 2w + 1
+@pytest.mark.parametrize("n,width", [
+    (N, 101), (N, 51), (N, TCFG.transition_width(48000, 512)), (150, 101)])
+def test_class_table_expands_to_the_band(n, width):
+    """The band without its repetitions: (w+1, w+1) classes by offsets (n
+    rows where n < 2w + 1), read out of log_transition_band and expanding
+    back to it bit for bit; a band that is no such function raises."""
+    band = log_transition_band(n, width)
+    tab = band_class_table(band, n, width)
+    assert tab.dtype == np.float32
+    assert tab.shape == ((n if n < 2 * width + 1 else width + 1), width + 1)
+    back = expand_class_table(tab, n, width)
+    np.testing.assert_array_equal(back.view(np.uint32), band.view(np.uint32))
+    # it is the JAX package's matrix, entry for entry
+    dense = np.log(local_transition(n, width) + 1e-30).astype(np.float32)
+    i = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    d = np.abs(i - j)
+    inb = d <= width
+    got = np.where(inb, tab[row_classes(n, width)[i], np.minimum(d, width)],
+                   LOG_FLOOR)
+    np.testing.assert_array_equal(got.view(np.uint32), dense.view(np.uint32))
+    broken = band.copy()
+    broken[n // 2, width + 1] += 1.0   # one pair no longer like its mirror
+    with pytest.raises(ValueError, match="class table"):
+        band_class_table(broken, n, width)
+
+
+def _forward_as_the_kernel(lo_v, lo_u, tab, n, w, log_stay, log_switch, D, S):
+    """The CUDA forward kernel's candidate sets in NumPy (csrc/viterbi.cu):
+    per destination tile of D states the sources of its S chunks, scored
+    from the symmetric expansion of the class table (log_floor beyond the
+    band), plus the global first argmax of delta + log_floor where that
+    lies outside the destination's band."""
+    f32 = np.float32
+    floor, ls, lw = f32(LOG_FLOOR), f32(log_stay), f32(log_switch)
+    T = lo_v.shape[0]
+    cls = row_classes(n, w)
+    span = 4 * S * ((2 * w + D + 4 * S - 1) // (4 * S))   # grouped compares
+    rs = (span + D - 1 + 3) // 4 * 4
+    x = np.abs(np.arange(rs) - (w + D - 1))
+    etab = np.where(x <= w, tab[:, np.minimum(x, w)], floor).astype(f32)
+    init = f32(np.log(1.0 / (2 * n)))
+    dv = (init + lo_v[0]).astype(f32)
+    du = np.full(n, init + lo_u[0], f32)
+    psi_v = np.zeros((T, n), np.int32)
+    psi_u = np.zeros((T, n), np.int32)
+
+    def better(m, b, m2, b2):
+        return (m2, b2) if m2 > m or (m2 == m and b2 < b) else (m, b)
+
+    for t in range(1, T):
+        fv, fu = dv + floor, du + floor
+        gvi, gui = int(np.argmax(fv)), int(np.argmax(fu))
+        new_v, new_u = np.empty(n, f32), np.empty(n, f32)
+        for j in range(n):
+            j0 = j // D * D
+            lo = j0 - w
+            i = np.arange(max(lo, 0), min(lo + span - 1, n - 1) + 1)
+            lt = etab[cls[i], (i - lo) + (D - 1) - (j - j0)]
+            sv, su = dv[i] + lt, du[i] + lt
+            mv, bv = sv.max(), int(i[np.argmax(sv)])
+            mu, bu = su.max(), int(i[np.argmax(su)])
+            if abs(gvi - j) > w:
+                mv, bv = better(mv, bv, fv[gvi], gvi)
+            if abs(gui - j) > w:
+                mu, bu = better(mu, bu, fu[gui], gui)
+            stay, sw = mv + ls, mu + lw
+            new_v[j] = (stay if stay >= sw else sw) + lo_v[t, j]
+            psi_v[t, j] = bv if stay >= sw else bu + n
+            sw2, st2 = mv + lw, mu + ls
+            new_u[j] = (sw2 if sw2 >= st2 else st2) + lo_u[t]
+            psi_u[t, j] = bv if sw2 >= st2 else bu + n
+        dv, du = new_v, new_u
+    return psi_v, psi_u, np.stack([dv, du])
+
+
+# (n, w, T, D, S): the shipped tile at both rates, the widest and the
+# narrowest tile, n < 2w + 1, a band wider than a third of the states
+@pytest.mark.parametrize("n,width,T,D,S", [
+    (N, 101, 16, 8, 8), (N, 51, 16, 8, 8), (N, 51, 10, 8, 16),
+    (N, 101, 10, 1, 1), (150, 101, 12, 8, 8), (N, 150, 10, 4, 4),
+    (37, 5, 15, 8, 4)])
+def test_forward_kernel_candidates_equal_plain(n, width, T, D, S):
+    """What the forward kernel compares gives the dense scan's backpointers
+    and final delta exactly: the class table in place of the band, the
+    tile's source range, and one global maximum in place of the out-of-band
+    prefix / suffix maxima."""
+    obs, vprob = wandering_pitch_obs(T, n, 7 + n + width, min(200, n // 2), 8,
+                                     (-2, -1, 0, 1, 2), True)
+    lo_v = np.log(obs + 1e-30).astype(np.float32)
+    lo_u = np.log((1.0 - vprob) / n + 1e-30).astype(np.float32)
+    band = log_transition_band(n, width)
+    ls = float(np.log1p(-TCFG.switch_prob))
+    lw = float(np.log(TCFG.switch_prob))
+    got = _forward_as_the_kernel(lo_v, lo_u, band_class_table(band, n, width),
+                                 n, width, ls, lw, D, S)
+    ref = pyin_cuda.viterbi_fwd_plain(
+        _t(lo_v)[None], _t(lo_u)[None],
+        pyin_cuda.dense_from_band(_t(band), n, width), ls, lw)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r[0].numpy())
+
+
+# (B, T, n, chunk): T - 1 a multiple of the chunk and not, one chunk only,
+# T = 1 and T = 2, the shipped chunk at the real state count
+@pytest.mark.parametrize("B,T,n,chunk", [
+    (1, 9, 7, 4), (1, 10, 7, 4), (3, 13, 11, 4), (2, 3, 5, 8), (1, 1, 7, 4),
+    (2, 2, 7, 4), (1, 130, N, pyin_cuda.BACK_CHUNK),
+    (2, 129, N, pyin_cuda.BACK_CHUNK)])
+def test_chunked_backtrace_equals_plain(B, T, n, chunk):
+    """The backtrace kernels' algorithm (chunk maps, hop, re-walk) in plain
+    PyTorch against the frame-by-frame walk, on seeded backpointers."""
+    rng = np.random.default_rng(1000 * B + T)
+    psi_v = _t(rng.integers(0, 2 * n, (B, T, n)).astype(np.int32))
+    psi_u = _t(rng.integers(0, 2 * n, (B, T, n)).astype(np.int32))
+    d_last = _t(rng.standard_normal((B, 2, n)).astype(np.float32))
+    d_last[:, 1, n // 2] = d_last[:, 0, 1] = d_last.max() + 1.0   # a tie
+    ref = pyin_cuda.viterbi_back_plain(d_last, psi_v, psi_u)
+    got = pyin_cuda.viterbi_back_chunked_plain(d_last, psi_v, psi_u, chunk)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert int(got[0, T - 1]) == 1   # the first of the two equal maxima
+
+
 def test_decode_states_wide_band_equals_jax_scan():
     """w = 150 > 127: a band the TPU kernel could not take (its Hankel rows
     stop at 256); the port's decode takes any w."""
@@ -168,11 +298,12 @@ def test_decode_states_wide_band_equals_jax_scan():
     with pytest.raises(ValueError):
         vp.build_banded_log_transition(local_transition(N, width), width)
     ref = _jax_scan(obs, vprob, width)
-    tables = tables_from_numpy(AudioConfig(sample_rate=SR), CFG, CPU)
-    wide = dataclasses.replace(tables, band=_t(log_transition_band(N, width)),
-                               half_width=width)
+    tables = tables_from_numpy(TAudioConfig(sample_rate=SR), TCFG, CPU)
+    band = log_transition_band(N, width)
+    wide = dataclasses.replace(tables, band=_t(band), half_width=width,
+                               band_tab=_t(band_class_table(band, N, width)))
     got = tpyin._decode_states(_t(obs)[None], _t(vprob)[None], wide,
-                               CFG)[0].numpy()
+                               TCFG)[0].numpy()
     np.testing.assert_array_equal(got, ref)
 
 
@@ -190,12 +321,84 @@ def test_batched_plain_decode_equals_per_sequence():
         assert torch.equal(both[b], one[0])
 
 
+# ------------------------------------------------------- the card by default
+
+def _device_functions():
+    """Every public function and class of the port that takes ``device``."""
+    import importlib
+    import inspect
+    import pkgutil
+    import aegis_tpu_torch
+    found = {}
+    for mod in pkgutil.walk_packages(aegis_tpu_torch.__path__,
+                                     "aegis_tpu_torch."):
+        if mod.name.endswith("__main__"):
+            continue
+        m = importlib.import_module(mod.name)
+        for name, obj in vars(m).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.name:
+                continue
+            if inspect.isfunction(obj) or inspect.isclass(obj):
+                p = inspect.signature(obj).parameters.get("device")
+                if p is not None and p.kind is not p.POSITIONAL_ONLY:
+                    found[f"{mod.name}.{name}"] = (obj, p)
+    return found
+
+
+def test_every_device_argument_defaults_to_the_card():
+    found = _device_functions()
+    expected = {"core.pyin.pyin", "core.analyze.run_analyze",
+                "core.analyze.dispatch_analyze",
+                "engine.turbo.run_analyze_turbo",
+                "engine.turbo.run_analyze_batch",
+                "engine.turbo.run_analyze_streamed",
+                "engine.engine.AegisEngine",
+                "engine.financial.AegisFinancialEngine",
+                "engine.folder.transcribe_folder"}
+    assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
+    for name, (_, p) in found.items():
+        if p.default is not p.empty:   # a required device names itself
+            assert p.default == "cuda", name
+
+
+@pytest.mark.parametrize("entry", [
+    "pyin", "run_analyze", "dispatch_analyze", "run_analyze_turbo",
+    "run_analyze_batch", "run_analyze_streamed", "AegisEngine",
+    "AegisFinancialEngine", "transcribe_folder", "resolve_device"])
+def test_entry_point_raises_without_a_card_when_none_is_named(
+        entry, monkeypatch, tmp_path):
+    """No device named means the card: without one every entry point
+    raises, and none runs the plain versions on the CPU instead."""
+    import aegis_tpu_torch
+    from aegis_tpu_torch.core import analyze
+    from aegis_tpu_torch.engine import engine, financial, folder, turbo
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    y = np.zeros(4096, np.float32)
+    audio = TAudioConfig(sample_rate=SR)
+    calls = {
+        "pyin": lambda: tpyin.pyin(y, SR),
+        "run_analyze": lambda: analyze.run_analyze(y, audio, TCFG),
+        "dispatch_analyze": lambda: analyze.dispatch_analyze(y, audio, TCFG),
+        "run_analyze_turbo": lambda: turbo.run_analyze_turbo(y, audio, TCFG),
+        "run_analyze_batch": lambda: turbo.run_analyze_batch(y[None], audio,
+                                                             TCFG),
+        "run_analyze_streamed": lambda: turbo.run_analyze_streamed(y, audio,
+                                                                   TCFG),
+        "AegisEngine": lambda: engine.AegisEngine(sample_rate=SR),
+        "AegisFinancialEngine": lambda: financial.AegisFinancialEngine(),
+        "transcribe_folder": lambda: folder.transcribe_folder(str(tmp_path)),
+        "resolve_device": lambda: aegis_tpu_torch.resolve_device(),
+    }
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()
+
+
 # -------------------------------------------------------------- whole pYIN
 
 def test_pyin_matches_jax(two_tone_22k):
     y, sr = two_tone_22k
     f0j, vfj, vpj = (np.asarray(a) for a in jpyin.pyin(y, sr))
-    f0t, vft, vpt = (a.numpy() for a in tpyin.pyin(y, sr))
+    f0t, vft, vpt = (a.numpy() for a in tpyin.pyin(y, sr, device="cpu"))
     assert (vfj == vft).mean() == 1.0
     m = vfj & vft
     assert np.max(np.abs(f0j[m] - f0t[m]) / f0j[m]) < 1e-4

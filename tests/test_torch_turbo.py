@@ -3,6 +3,7 @@ package's turbo functions and vs the port's own fused program, on the CPU
 (the seam, batch and streaming contracts of tests/test_turbo.py), and the
 ``financial`` / ``batch`` / ``transcribe --turbo stream`` CLI commands."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ from aegis_tpu.io import write_wav
 from aegis_tpu.midi.decode import midi_to_notes
 from aegis_tpu.tools.signal_gen import generate_scale_benchmark, generate_test_track
 from aegis_tpu.verify.metrics import events_to_seconds, note_event_f1
+from aegis_tpu_torch import config as tconfig
 from aegis_tpu_torch.core.analyze import PCM8_BLOCK, run_analyze
 from aegis_tpu_torch.core.events import extract_events_financial, extract_events_v1
 from aegis_tpu_torch.engine import turbo as tturbo
@@ -37,6 +39,17 @@ SR = 22050
 AUDIO = AudioConfig(sample_rate=SR)
 PYIN = PyinConfig()
 SMALL = TurboConfig(tile_frames=16, halo_frames=8)
+
+
+def port_turbo(tc):
+    """The port's own TurboConfig with the fields of the JAX package's."""
+    return tconfig.TurboConfig(**dataclasses.asdict(tc))
+
+
+# the port is handed its own config classes
+TAUDIO = tconfig.AudioConfig(sample_rate=SR)
+TPYIN = tconfig.PyinConfig()
+TSMALL = port_turbo(SMALL)
 # the JAX reference on ONE device, as the port runs: on the test suite's
 # 8-device CPU mesh the JAX package pads the tile count to a multiple of 8,
 # and the distortion score averages over that padding
@@ -93,9 +106,9 @@ def test_tiles_match_fused_and_jax(track, tile, halo):
     """Seams: the tiled rows agree with the port's fused program, events
     are identical to it, and the rows match the JAX tiled program's."""
     tc = TurboConfig(tile_frames=tile, halo_frames=halo)
-    out_t = tturbo.run_analyze_turbo(track, AUDIO, PYIN, 0.6, turbo=tc,
-                                     transport="float32")
-    out_s = run_analyze(track, AUDIO, PYIN, 0.6, transport="float32")
+    out_t = tturbo.run_analyze_turbo(track, TAUDIO, TPYIN, 0.6, turbo=port_turbo(tc),
+                                     transport="float32", device="cpu")
+    out_s = run_analyze(track, TAUDIO, TPYIN, 0.6, transport="float32", device="cpu")
     assert out_t["f0"].shape == out_s["f0"].shape
     vf_t, vf_s = out_t["voiced_flag"], out_s["voiced_flag"]
     assert (vf_t == vf_s).mean() > 0.98  # rare seam flips allowed
@@ -119,10 +132,10 @@ def test_tiles_match_fused_and_jax(track, tile, halo):
 
 def test_tiles_financial_match_fused_and_jax(track):
     tc = TurboConfig(tile_frames=48, halo_frames=24)
-    ref_fused = run_analyze(track, AUDIO, PYIN, 0.6, financial=True,
-                            transport="float32")
-    raw = tturbo.run_analyze_turbo(track, AUDIO, PYIN, 0.6, turbo=tc,
-                                   transport="float32", financial=True)
+    ref_fused = run_analyze(track, TAUDIO, TPYIN, 0.6, financial=True,
+                            transport="float32", device="cpu")
+    raw = tturbo.run_analyze_turbo(track, TAUDIO, TPYIN, 0.6, turbo=port_turbo(tc),
+                                   transport="float32", financial=True, device="cpu")
     T = len(ref_fused["f0"])
     assert (raw["mute_mask"][:T] == ref_fused["mute_mask"]).mean() > 0.99
     assert (raw["voiced_flag"][:T] == ref_fused["voiced_flag"]).mean() > 0.98
@@ -145,7 +158,7 @@ def test_batch_two_tracks_match_jax():
     ys = np.stack([(0.4 * np.sin(2 * np.pi * 196.0 * t)).astype(np.float32),
                    (0.4 * np.sin(2 * np.pi * 261.63 * t)).astype(np.float32)])
     tc = TurboConfig(tile_frames=16, halo_frames=8)
-    out = tturbo.run_analyze_batch(ys, AUDIO, PYIN, 0.6, turbo=tc)
+    out = tturbo.run_analyze_batch(ys, TAUDIO, TPYIN, 0.6, turbo=port_turbo(tc), device="cpu")
     assert out["f0"].shape[0] == 2
     for b, expect in enumerate((196.0, 261.63)):
         f0 = out["f0"][b][out["voiced_flag"][b]]
@@ -163,14 +176,14 @@ def test_batch_financial_per_track_scalars():
     loud = (0.7 * np.sin(2 * np.pi * 196.0 * t) * np.exp(-t)).astype(np.float32)
     quiet = (0.02 * np.sin(2 * np.pi * 392.0 * t)).astype(np.float32)
     ys = np.stack([loud, quiet])
-    out = tturbo.run_analyze_batch(ys, AUDIO, PYIN, financial=True)
+    out = tturbo.run_analyze_batch(ys, TAUDIO, TPYIN, financial=True, device="cpu")
     ref = jturbo.run_analyze_batch(ys, AUDIO, PYIN, financial=True, mesh=ONE)
     for k in ("adaptive_threshold", "distortion_score"):
         assert out[k].shape == (2,)
         np.testing.assert_allclose(out[k], ref[k], atol=1e-4)
     assert out["trend"].shape[0] == 2
     for b, y in enumerate(ys):
-        alone = tturbo.run_analyze_turbo(y, AUDIO, PYIN, financial=True)
+        alone = tturbo.run_analyze_turbo(y, TAUDIO, TPYIN, financial=True, device="cpu")
         np.testing.assert_array_equal(out["mel_db"][b], alone["mel_db"])
         np.testing.assert_array_equal(out["voiced_flag"][b],
                                       alone["voiced_flag"])
@@ -183,9 +196,9 @@ def test_streamed_matches_tiles_v1(track):
     """Streamed == tiled bit for bit on the pYIN rows with the int16
     transport (slab edges splice real audio, pass-1 gives the dB
     reference), with a slab count that does not divide the track."""
-    tr = tturbo.run_analyze_turbo(track, AUDIO, PYIN, 0.6, turbo=SMALL)
-    st = tturbo.run_analyze_streamed(track, AUDIO, PYIN, 0.6, turbo=SMALL,
-                                     slab_tiles=8, transport="int16")
+    tr = tturbo.run_analyze_turbo(track, TAUDIO, TPYIN, 0.6, turbo=TSMALL, device="cpu")
+    st = tturbo.run_analyze_streamed(track, TAUDIO, TPYIN, 0.6, turbo=TSMALL,
+                                     slab_tiles=8, transport="int16", device="cpu")
     assert (st["voiced_flag"] == tr["voiced_flag"]).all()
     m = st["voiced_flag"]
     assert np.array_equal(st["f0"][m], tr["f0"][m])
@@ -200,11 +213,11 @@ def test_streamed_matches_tiles_v1(track):
 
 
 def test_streamed_financial_matches_tiles_and_jax(track):
-    tr = tturbo.run_analyze_turbo(track, AUDIO, PYIN, 0.6, turbo=SMALL,
-                                  financial=True)
-    st = tturbo.run_analyze_streamed(track, AUDIO, PYIN, 0.6, turbo=SMALL,
+    tr = tturbo.run_analyze_turbo(track, TAUDIO, TPYIN, 0.6, turbo=TSMALL,
+                                  financial=True, device="cpu")
+    st = tturbo.run_analyze_streamed(track, TAUDIO, TPYIN, 0.6, turbo=TSMALL,
                                      slab_tiles=8, financial=True,
-                                     transport="int16")
+                                     transport="int16", device="cpu")
     assert (st["mute_mask"] == tr["mute_mask"]).all()
     assert note_event_f1(_fin_events(tr), _fin_events(st))["f1"] == 1.0
     both = st["voiced_flag"] & tr["voiced_flag"]
@@ -225,10 +238,10 @@ def test_streamed_int8_default(track):
     """The int8 stream (the default) agrees with the int16 stream on
     voicing, pitch and events, and with the JAX package's int8 stream."""
     assert (SMALL.tile_frames * 8 * AUDIO.hop_length) % PCM8_BLOCK == 0
-    st8 = tturbo.run_analyze_streamed(track, AUDIO, PYIN, 0.6, turbo=SMALL,
-                                      slab_tiles=8)
-    st16 = tturbo.run_analyze_streamed(track, AUDIO, PYIN, 0.6, turbo=SMALL,
-                                       slab_tiles=8, transport="int16")
+    st8 = tturbo.run_analyze_streamed(track, TAUDIO, TPYIN, 0.6, turbo=TSMALL,
+                                      slab_tiles=8, device="cpu")
+    st16 = tturbo.run_analyze_streamed(track, TAUDIO, TPYIN, 0.6, turbo=TSMALL,
+                                       slab_tiles=8, transport="int16", device="cpu")
     assert (st8["voiced_flag"] == st16["voiced_flag"]).mean() > 0.99
     both = st8["voiced_flag"] & st16["voiced_flag"]
     np.testing.assert_allclose(st8["f0"][both], st16["f0"][both], rtol=1e-3)
@@ -245,17 +258,17 @@ def test_streamed_int8_default(track):
 def test_stream_mode_via_facades(track):
     eng = AegisEngine(sample_rate=SR, device="cpu")
     raw_s = eng.audio_to_midi(track, None, turbo_mode="stream",
-                              turbo_config=SMALL)
+                              turbo_config=TSMALL)
     raw_d = eng.audio_to_midi(track, None)
     ev_s = eng.extract_events(raw_s, None, confidence_threshold=0.5)
     ev_d = eng.extract_events(raw_d, None, confidence_threshold=0.5)
     assert {e["note"] for e in ev_s} == {e["note"] for e in ev_d}
 
     fin = AegisFinancialEngine(sample_rate=SR, device="cpu")
-    a = fin.analyze(track, turbo_mode="stream", turbo_config=SMALL)
+    a = fin.analyze(track, turbo_mode="stream", turbo_config=TSMALL)
     ev, info = fin.extract_events(a)
     assert ev and "adaptive_threshold" in a
-    a_t = fin.analyze(track, turbo_mode="tiles", turbo_config=SMALL)
+    a_t = fin.analyze(track, turbo_mode="tiles", turbo_config=TSMALL)
     ev_t, _ = fin.extract_events(a_t)
     assert [(e["note"], e["start"]) for e in ev] == \
         [(e["note"], e["start"]) for e in ev_t]
