@@ -7,6 +7,7 @@ versions):
   transcribe  WAV/MP3 -> MIDI via the v1 engine (two-phase)
   financial   WAV/MP3 -> MIDI via the v2 financial engine (5-phase)
   batch       every matching file of a folder -> MIDI (v1 or financial)
+  stream      live: s16le PCM on stdin -> JSON event lines, MIDI at EOF
 """
 
 from __future__ import annotations
@@ -98,6 +99,105 @@ def cmd_batch(args) -> int:
     return 0
 
 
+def cmd_stream(args) -> int:
+    """Live transcription from a PCM pipe.
+
+    Reads signed 16-bit little-endian mono PCM from stdin (what
+    ``ffmpeg -f s16le -ac 1`` or ``sox -t raw -e signed -b 16`` emit, or a
+    microphone bridge), prints a JSON line of the live event list every
+    ``--poll-every`` seconds of audio, and on EOF finalizes — writing MIDI
+    when an output path is given.  Engines: v1 and financial
+    (engine.realtime.StreamingTranscriber); poly is not ported and raises.
+
+        ffmpeg -i in.wav -f s16le -ac 1 -ar 22050 - | \
+            python -m aegis_tpu_torch stream --engine financial out.mid
+    """
+    import json
+
+    import numpy as np
+
+    from aegis_tpu_torch.config import AudioConfig
+    from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
+                                                 StreamingTranscriber)
+
+    lat = {}
+    if args.tile_frames:
+        lat["tile_frames"] = args.tile_frames
+    if args.halo_frames:
+        lat["halo_frames"] = args.halo_frames
+    kw = {}
+    if args.confidence is not None:
+        kw["confidence_threshold"] = args.confidence
+    elif args.engine == "v1":
+        kw["confidence_threshold"] = 0.5
+    if args.engine == "poly":
+        rt = StreamingPolyTranscriber(sample_rate=args.sr, **kw, **lat)
+    else:
+        rt = StreamingTranscriber(audio=AudioConfig(sample_rate=args.sr),
+                                  financial=(args.engine == "financial"),
+                                  device=args.device, **kw, **lat)
+    print(f"# engine={args.engine} sr={args.sr} "
+          f"lookahead={rt.lookahead_s:.2f}s", file=sys.stderr)
+
+    hop = rt.audio.hop_length
+    spf = hop / float(args.sr)  # seconds per frame
+
+    def _jsonable(events, live):
+        return json.dumps({
+            "live": live, "n": len(events),
+            "events": [{
+                "note": int(e["note"]),
+                "start": int(e["start"]), "end": int(e["end"]),
+                "start_s": round(e["start"] * spf, 4),
+                "end_s": round(e["end"] * spf, 4),
+                "confidence": round(float(e.get("confidence", 0.0)), 4),
+                "velocity": int(e.get("velocity", 0)),
+                "track": e.get("track", "main"),
+            } for e in events]})
+
+    poll_samples = max(int(args.poll_every * args.sr), 1)
+    src = sys.stdin.buffer
+    fed_since_poll = 0
+    carry = b""  # odd trailing byte of a short read belongs to the NEXT
+    # sample — dropping it would byte-shift (byte-swap) the whole rest of
+    # the s16le stream
+    while True:
+        data = src.read(8192)
+        if not data:
+            break
+        data = carry + data
+        cut = len(data) // 2 * 2
+        carry = data[cut:]
+        pcm = np.frombuffer(data[:cut],
+                            dtype="<i2").astype(np.float32) / 32768.0
+        rt.feed(pcm)
+        fed_since_poll += len(pcm)
+        if fed_since_poll >= poll_samples:
+            fed_since_poll = 0
+            print(_jsonable(rt.poll_events(), live=True), flush=True)
+    events = rt.finalize()
+    if not events:
+        print("# no events detected", file=sys.stderr)
+    if args.output:
+        # engine-matched encoders, same defaults as the offline facades:
+        # v1 program 27, financial named-track layout
+        if args.engine == "financial":
+            from aegis_tpu_torch.midi.encode import events_to_midi_financial
+
+            events_to_midi_financial(events, args.sr, hop,
+                                     output=args.output)
+        else:
+            from aegis_tpu_torch.midi.encode import events_to_midi
+
+            program = (args.midi_program if args.midi_program is not None
+                       else 27)
+            events_to_midi(events, args.sr, hop,
+                           midi_program=program, output=args.output)
+        print(f"# wrote {args.output}", file=sys.stderr)
+    print(_jsonable(events, live=False), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="aegis_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -161,6 +261,29 @@ def main(argv=None) -> int:
                    help="audio upload packing")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_batch)
+
+    p = sub.add_parser("stream", description=cmd_stream.__doc__,
+                       formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("output", nargs="?", default=None,
+                   help="optional .mid written at EOF")
+    p.add_argument("--engine", default="v1",
+                   choices=["v1", "financial", "poly"],
+                   help="v1 (default) or financial; poly raises")
+    p.add_argument("--sr", type=int, default=22050)
+    p.add_argument("--confidence", type=float, default=None)
+    p.add_argument("--poll-every", type=float, default=2.0,
+                   help="seconds of audio between live event prints")
+    p.add_argument("--tile-frames", type=int, default=None,
+                   help="live tile size in frames (default 24); smaller "
+                        "tiles cut the feed->event lookahead at more "
+                        "tiles a second (see engine/realtime.py)")
+    p.add_argument("--halo-frames", type=int, default=None,
+                   help="halo context frames per side (default 8)")
+    p.add_argument("--midi-program", type=int, default=None,
+                   help="GM program of the v1 engine's MIDI (default 27); "
+                        "financial uses its named-track encoder")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_stream)
 
     args = ap.parse_args(argv)
     if getattr(args, "end", None) is not None and args.end <= args.start:

@@ -1,10 +1,11 @@
 """Onset strength (PyTorch) and host onset picking, the v1 subset of
 ``aegis_tpu/core/cqt.py``.
 
-``pick_onsets`` and ``split_events_at_onsets`` are NumPy copies, code
-unchanged, of the JAX module's host helpers: that module imports jax at its top, so the
-port cannot import them from there.  ``tests/test_torch_masks_onsets.py``
-pins both copies element-identical to the originals.
+``pick_onsets``, ``pick_onsets_incremental`` and ``split_events_at_onsets``
+are NumPy copies, code unchanged, of the JAX module's host helpers.
+``tests/test_torch_masks_onsets.py`` and
+``tests/test_torch_realtime_copies.py`` pin the copies element-identical to
+the originals.
 """
 
 from __future__ import annotations
@@ -85,6 +86,79 @@ def pick_onsets(envelope: np.ndarray, sr: int, hop_length: int,
             onsets.append(t)
             last = t
     return np.asarray(onsets, np.int64)
+
+
+def pick_onsets_incremental(envelope: np.ndarray, sr: int, hop_length: int,
+                            state: dict | None,
+                            pre_max_ms: float = 30.0,
+                            post_max_ms: float = 0.0,
+                            pre_avg_ms: float = 100.0,
+                            post_avg_ms: float = 100.0,
+                            delta: float = 0.07, wait_ms: float = 30.0,
+                            ) -> tuple:
+    """pick_onsets with an append-only cache: (onsets, new_state).
+
+    Re-picking onsets over the WHOLE accumulated envelope at every live
+    poll is O(T) sliding windows + nanmean.  The envelope only ever
+    grows (the transcribers append immutable tile rows), so when the
+    global max is unchanged every window that never saw the old padded
+    right edge is provably identical: positions t < S := T_prev - post
+    read only real frames [t-pre, t+post] ⊆ [0, T_prev).  This
+    recomputes candidates from S - pre on (their windows never touch the
+    slice's left pad) with the SAME normalization scale and window
+    reducers, and continues the wait debounce from the last frozen onset
+    — the result is ELEMENT-IDENTICAL to the full pick_onsets, pinned by
+    tests/test_torch_realtime_copies.py at every appended step.
+
+    A new global max rescales every normalized value, and the first call
+    has no state: both fall back to the full computation.  ``state`` is
+    opaque; pass None initially and the previous return value after.
+    """
+    env = np.asarray(envelope, np.float64)
+    T = len(env)
+    if T == 0:
+        return np.zeros(0, np.int64), None
+    spf = hop_length / sr * 1000.0
+    pre_max = max(int(round(pre_max_ms / spf)), 1)
+    post_max = max(int(round(post_max_ms / spf)), 1)
+    pre_avg = max(int(round(pre_avg_ms / spf)), 1)
+    post_avg = max(int(round(post_avg_ms / spf)), 1)
+    wait = max(int(round(wait_ms / spf)), 1)
+    params = (pre_max, post_max, pre_avg, post_avg, wait, delta)
+    m = env.max()
+    pre = max(pre_max, pre_avg)
+    post = max(post_max, post_avg)
+    if (state is not None and state["params"] == params
+            and state["T"] <= T and state["m"] == m
+            and state["T"] - post > 0):
+        if state["T"] == T:
+            return state["onsets"], state
+        S = state["T"] - post
+        lo = S - pre if S - pre > 0 else 0
+        prev = state["onsets"]
+        prefix = prev[prev < S]
+        seg = env[lo:] / max(m, 1e-10)  # same scale expression as the full
+
+        def _window(arr, p, q, pad, reducer):
+            w = p + q + 1
+            padded = np.concatenate([np.full(p, pad), arr, np.full(q, pad)])
+            view = np.lib.stride_tricks.sliding_window_view(padded, w)
+            return reducer(view, axis=1)
+
+        win_max = _window(seg, pre_max, post_max, -np.inf, np.max)
+        win_mean = _window(seg, pre_avg, post_avg, np.nan, np.nanmean)
+        cand = (seg >= win_max) & (seg >= win_mean + delta) & (seg > 0)
+        last = int(prefix[-1]) if len(prefix) else -wait - 1
+        out = []
+        for t in (np.where(cand[S - lo:])[0] + S).tolist():
+            if t - last >= wait:
+                out.append(t)
+                last = t
+        onsets = np.concatenate([prefix, np.asarray(out, np.int64)])
+    else:
+        onsets = pick_onsets(env, sr, hop_length, pre_max_ms, post_max_ms,
+                             pre_avg_ms, post_avg_ms, delta, wait_ms)
+    return onsets, {"T": T, "m": m, "onsets": onsets, "params": params}
 
 
 def split_events_at_onsets(events: list, onsets: np.ndarray,

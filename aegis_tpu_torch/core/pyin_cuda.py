@@ -7,9 +7,9 @@ Kernels (``aegis_tpu_torch/csrc/viterbi.cu``, CUDA C++ for sm_90a):
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no fallback between the two.  Each
-kernel launch adds one to ``LAUNCHES[name]`` and records its batch size B
-in ``LAST_BATCH[name]``, so a run can show that it went through the
-kernels, and with how many sequences.
+kernel launch adds one to ``LAUNCHES[name]``, records its batch size B in
+``LAST_BATCH[name]`` and adds B to ``SEQUENCES[name]``, so a run can show
+that it went through the kernels, and with how many sequences.
 
 The library is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
 under the repository root, keyed by a hash of the source and the flags,
@@ -45,6 +45,9 @@ from aegis_tpu_torch.core.tables import LOG_FLOOR, band_class_table
 
 LAUNCHES = {"viterbi_fwd": 0, "viterbi_back": 0}
 LAST_BATCH = {"viterbi_fwd": 0, "viterbi_back": 0}
+# the sequences launched in all (the sum of B over the launches): equal to
+# LAUNCHES where every launch had B = 1, as on the live path
+SEQUENCES = {"viterbi_fwd": 0, "viterbi_back": 0}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "viterbi.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aegis_tpu_torch"
@@ -364,6 +367,7 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
                       tile, cluster, max_shared_memory(dev))
     LAUNCHES["viterbi_fwd"] += 1
     LAST_BATCH["viterbi_fwd"] = B
+    SEQUENCES["viterbi_fwd"] += B
     return out
 
 
@@ -398,6 +402,7 @@ def viterbi_back(delta_last: torch.Tensor, psi_v: torch.Tensor,
     _raise_on(err, "viterbi_back")
     LAUNCHES["viterbi_back"] += 1
     LAST_BATCH["viterbi_back"] = B
+    SEQUENCES["viterbi_back"] += B
     return states
 
 

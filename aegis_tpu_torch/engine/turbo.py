@@ -89,8 +89,12 @@ def _tile_analyze(slab: torch.Tensor, mel_db: torch.Tensor, rake_sens: float,
 
     With ``financial=True`` the guitar-specific filters (sub-E2 correction,
     rake enhancement, palm-mute mask) also run here, ON THE HALOED ARRAYS:
-    each has bounded temporal extent (<= 50 ms, 1-3 frames at hop 512, far
-    inside the >= 64-frame halo), so cropping afterwards is exact.  The
+    each has bounded temporal extent (<= 50 ms: 2 frames at hop 512 and
+    22 050 Hz, 4 at 44 100 Hz), so cropping afterwards is exact for any halo
+    of 5 frames or more: the 64-frame halo of the tiled modes and the
+    8-frame halo of the live transcriber's default preset alike (a run that
+    reaches the slab's edge has more than 5 frames in the halo alone and is
+    rejected for its length either way).  The
     whole-track trend recurrences do not run per tile (see
     analyze_audio_sharded)."""
     hop, fl = audio.hop_length, pyin_cfg.frame_length

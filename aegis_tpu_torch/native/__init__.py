@@ -1,10 +1,13 @@
 """Native (C++) host components, loaded via ctypes.
 
 A copy of the part of ``aegis_tpu/native`` that the v1 and financial event
-extraction reach: the v1 per-frame segmentation (events_core.cpp) and the
-Wilder recurrence of the RSI ghost filter (trend_core.cpp).  The build is a
-plain ``g++ -O3 -shared -fPIC`` into the user cache (keyed by a source hash)
-and the binding is ctypes.  These are host loops with NumPy twins of equal
+extraction and the live financial transcriber reach: the v1 per-frame
+segmentation (events_core.cpp) and the trend-filter recurrences
+(trend_core.cpp).  The build is a plain ``g++ -O3 -ffp-contract=off -shared
+-fPIC`` into the user cache (keyed by a source hash) and the binding is
+ctypes; ``-ffp-contract=off`` keeps the recurrences free of fused
+multiply-adds on a host whose baseline ISA has them (aarch64), which their
+bit-identity with the NumPy oracle needs.  These are host loops with NumPy twins of equal
 output: if no compiler is present or the build fails, callers run the NumPy
 implementations (tests/test_torch_engine.py holds the two equal).
 
@@ -58,12 +61,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
             os.makedirs(_cache_dir(), exist_ok=True)
             tmp = so_path + f".tmp{os.getpid()}"
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                ["g++", "-O3", "-ffp-contract=off", "-shared", "-fPIC",
+                 "-std=c++17",
                  *_SRCS, "-o", tmp],
                 check=True, capture_output=True, timeout=120)
             os.replace(tmp, so_path)
         lib = ctypes.CDLL(so_path)
         lib.aegis_segment_v1.restype = ctypes.c_long
+        for name in ("ema", "kalman", "holt", "artic", "kalman_f32",
+                     "holt_f32", "wilder"):
+            getattr(lib, f"aegis_trend_{name}").restype = None
         _LIB = lib
     except Exception as e:  # no compiler / failed build: numpy fallback
         print(f"[aegis_torch.native] build unavailable ({e}); NumPy fallback",
@@ -147,8 +154,11 @@ def segment_events_v1_native(
 
 
 # --------------------------------------------------------------------------
-# Wilder recurrence (trend_core.cpp), routed through core/trend_fast.py::rsi;
-# bit-identical to the Python loop of ref/trend_ref.py::rsi.
+# trend-filter recurrences (trend_core.cpp) — the strictly sequential loops
+# of the financial noise-filter stack.  core/trend_fast.py routes through
+# these (bit-identical to ref/trend_ref.py's Python loops; pinned
+# buffer-for-buffer by tests/test_torch_realtime_copies.py); reductions and
+# elementwise steps stay in numpy on the caller side.
 
 def _ptr(a, t):
     return a.ctypes.data_as(ctypes.POINTER(t))
@@ -156,6 +166,60 @@ def _ptr(a, t):
 
 def _f64(a) -> np.ndarray:
     return np.ascontiguousarray(a, np.float64)
+
+
+def trend_ema_native(data: np.ndarray, alpha: float) -> np.ndarray:
+    """ref/trend_ref.py::ema's loop (NaN-gap reset)."""
+    lib = get_lib()
+    x = _f64(data)
+    out = np.empty(len(x), np.float64)
+    lib.aegis_trend_ema(_ptr(x, ctypes.c_double), ctypes.c_long(len(x)),
+                        ctypes.c_double(alpha), _ptr(out, ctypes.c_double))
+    return out
+
+
+def trend_kalman_native(data: np.ndarray, process_variance: float,
+                        measurement_variance: float,
+                        x0: float) -> np.ndarray:
+    """ref/trend_ref.py::kalman's loop; ``x0`` is data[argmax(valid)]
+    (the caller guarantees a valid sample exists)."""
+    lib = get_lib()
+    x = _f64(data)
+    out = np.empty(len(x), np.float64)
+    lib.aegis_trend_kalman(
+        _ptr(x, ctypes.c_double), ctypes.c_long(len(x)),
+        ctypes.c_double(process_variance),
+        ctypes.c_double(measurement_variance), ctypes.c_double(x0),
+        _ptr(out, ctypes.c_double))
+    return out
+
+
+def trend_holt_native(data: np.ndarray, alpha: float, beta: float,
+                      level0: float, trend0: float) -> np.ndarray:
+    """ref/trend_ref.py::holt_winters's loop; init values from the first
+    two valid samples (the caller guarantees >= 2)."""
+    lib = get_lib()
+    x = _f64(data)
+    out = np.empty(len(x), np.float64)
+    lib.aegis_trend_holt(
+        _ptr(x, ctypes.c_double), ctypes.c_long(len(x)),
+        ctypes.c_double(alpha), ctypes.c_double(beta),
+        ctypes.c_double(level0), ctypes.c_double(trend0),
+        _ptr(out, ctypes.c_double))
+    return out
+
+
+def trend_artic_native(f0: np.ndarray, upper: np.ndarray,
+                       lower: np.ndarray) -> np.ndarray:
+    """ref/trend_ref.py::detect_articulation_bollinger's state machine."""
+    lib = get_lib()
+    f = _f64(f0)
+    out = np.empty(len(f), np.int8)
+    lib.aegis_trend_artic(
+        _ptr(f, ctypes.c_double), _ptr(_f64(upper), ctypes.c_double),
+        _ptr(_f64(lower), ctypes.c_double), ctypes.c_long(len(f)),
+        _ptr(out, ctypes.c_byte))
+    return out
 
 
 def trend_wilder_native(gains: np.ndarray, losses: np.ndarray, n: int,
@@ -171,3 +235,34 @@ def trend_wilder_native(gains: np.ndarray, losses: np.ndarray, n: int,
         ctypes.c_long(n), ctypes.c_long(period),
         ctypes.c_double(seed_g), ctypes.c_double(seed_l),
         _ptr(avg_g, ctypes.c_double), _ptr(avg_l, ctypes.c_double))
+
+
+def trend_kalman_f32_native(data: np.ndarray, process_variance: float,
+                            measurement_variance: float,
+                            x0: float) -> np.ndarray:
+    """ref/trend_ref.py::kalman on a FLOAT32 input (the recurrence runs in
+    float32 under numpy's weak promotion; see trend_core.cpp)."""
+    lib = get_lib()
+    x = np.ascontiguousarray(data, np.float32)
+    out = np.empty(len(x), np.float64)
+    lib.aegis_trend_kalman_f32(
+        _ptr(x, ctypes.c_float), ctypes.c_long(len(x)),
+        ctypes.c_double(process_variance),
+        ctypes.c_double(measurement_variance), ctypes.c_float(x0),
+        _ptr(out, ctypes.c_double))
+    return out
+
+
+def trend_holt_f32_native(data: np.ndarray, alpha: float, beta: float,
+                          level0: float, trend0: float) -> np.ndarray:
+    """ref/trend_ref.py::holt_winters on a FLOAT32 input (float32
+    recurrence, see trend_core.cpp)."""
+    lib = get_lib()
+    x = np.ascontiguousarray(data, np.float32)
+    out = np.empty(len(x), np.float64)
+    lib.aegis_trend_holt_f32(
+        _ptr(x, ctypes.c_float), ctypes.c_long(len(x)),
+        ctypes.c_double(alpha), ctypes.c_double(beta),
+        ctypes.c_float(level0), ctypes.c_float(trend0),
+        _ptr(out, ctypes.c_double))
+    return out

@@ -2,10 +2,11 @@
 
     python -m aegis_tpu_torch.tools.bench_viterbi [--quick]
         [--baseline first/viterbi.cu] [--previous earlier/viterbi.cu]
-        [--out results.jsonl]
+        [--shapes name,name] [--out results.jsonl]
 
 For each shape of the main path (one 60 s track fused at 22 050 and 44 100
-Hz, its tiles, the stream's slab of 16 tiles) and a few edge shapes (T = 1,
+Hz, its tiles, the stream's slab of 16 tiles, the live transcriber's one
+tile a launch: B = 1, T = 40 and 128) and a few edge shapes (T = 1,
 T = 2, n < 2w + 1, a table too large for shared memory) it runs every
 variant of the forward kernel (both destination tiles, one to eight CTAs a
 sequence, the score table in shared or global memory) and the backtrace against the plain PyTorch versions on
@@ -19,7 +20,9 @@ the first C interface (``aegis_viterbi_fwd`` reading the (n, 2w+1) band,
 ``--previous`` names one with the present C interface.  Either is built
 beside the present library and timed in turns with it (earlier, new, new,
 earlier), since only times taken in one run on one card compare.
-``--quick`` checks the short shapes only and times nothing.
+``--quick`` checks the short shapes only and times nothing; ``--shapes``
+keeps the named shapes only (``live`` stands for the four live shapes).
+Every timed shape lists the cluster variants beside the one-CTA ones.
 
 The checks also run the forward kernel on scores the engines never make
 (an observation of exactly 0, observations above 0, frames of -inf), where
@@ -59,6 +62,12 @@ SHAPES = {
     "short_b3_w51": (3, 131, 450, 51, True),
     "narrow_n150_w101": (2, 65, 150, 101, True),   # n < 2w + 1
     "wide_w200": (1, 40, 450, 200, True),          # table past shared memory
+    # one live tile a launch: tile + 2 * halo frames at the (24, 8) and the
+    # (64, 32) presets, both rates
+    "live_t40_w101": (1, 40, 450, 101, True),
+    "live_t128_w101": (1, 128, 450, 101, True),
+    "live_t40_w51": (1, 40, 450, 51, True),
+    "live_t128_w51": (1, 128, 450, 51, True),
     "fused60_22050": (1, 2625, 450, 101, False),
     "fused60_44100": (1, 5249, 450, 51, False),
     "tiles60_22050": (3, 1152, 450, 101, False),
@@ -66,8 +75,9 @@ SHAPES = {
     "stream_slab": (16, 1152, 450, 101, False),
     "batch_40": (40, 300, 450, 101, False),   # 4 B CTAs outnumber the SMs
 }
+LIVE = ("live_t40_w101", "live_t128_w101", "live_t40_w51", "live_t128_w51")
 TIMED = ("fused60_22050", "fused60_44100", "tiles60_22050", "tiles60_44100",
-         "stream_slab", "batch_40")
+         "stream_slab", "batch_40") + LIVE
 
 
 def emit(out, obj) -> None:
@@ -287,8 +297,16 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--baseline", default=None)
     ap.add_argument("--previous", default=None)
+    ap.add_argument("--shapes", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    wanted = None
+    if args.shapes:
+        wanted = {n for part in args.shapes.split(",")
+                  for n in (LIVE if part == "live" else (part,))}
+        unknown = wanted - set(SHAPES)
+        if unknown:
+            ap.error(f"unknown shapes {sorted(unknown)}")
     dev = resolve_device("cuda")
     out = open(args.out, "w") if args.out else None
     smi = subprocess.run(
@@ -302,11 +320,12 @@ def main() -> int:
     earlier = (Baseline(args.baseline) if args.baseline
                else Previous(args.previous) if args.previous else None)
     for name, shape in SHAPES.items():
-        if shape[4] or not args.quick:
+        if (shape[4] or not args.quick) and (wanted is None or name in wanted):
             check(name, shape, dev, out, earlier)
     if not args.quick:
         for name in TIMED:
-            time_shape(name, SHAPES[name], dev, out, earlier)
+            if wanted is None or name in wanted:
+                time_shape(name, SHAPES[name], dev, out, earlier)
     emit(out, {"ok": True})
     return 0
 

@@ -5,8 +5,9 @@
 
 Drives the port's main paths, the v1 WAV -> MIDI transcription
 (``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), the
-financial (v2) engine, the tiled, streamed and folder-batch modes, and the
-CUDA kernels, in ten phases; each raises on failure:
+financial (v2) engine, the tiled, streamed and folder-batch modes, the
+live transcribers and the CUDA kernels, in thirteen phases; each raises on
+failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -54,6 +55,28 @@ CUDA kernels, in ten phases; each raises on failure:
                stream, the kernels at B = n_tiles against their plain
                versions; a torch.profiler breakdown of the financial run
                with the trend stack's device time apart.
+ 11. live kernels — each kernel against its plain version on real tile
+               observations at the live transcriber's launch shapes: B = 1,
+               T = 40 (tile 24, halo 8) and T = 128 (64, 32), at 22 050 Hz
+               (w = 101) and 44 100 Hz (w = 51); the cluster the wrapper
+               picks and one CTA a sequence; backpointers, final delta and
+               states identical.
+ 12. live    — StreamingTranscriber on the card, fed 0.5 s chunks and polled
+               every 2 s of audio: v1 on the 60 s track at both rates and
+               both presets and on the 10-minute track, financial on the
+               60 s and the 10-minute track.  Each kernel launched exactly
+               once a tile with B = 1; poll_events() == _poll_full() at the
+               first, middle and last poll; finalize() F1 >= 0.99 against
+               the tiled engine on the card at the same tile and halo,
+               against the truth, and (60 s at 22 050 Hz) against the same
+               session on the CPU.
+ 13. times   — of each live session, beside the card's name and power limit:
+               wall ms a tile (median, p95), the ingest margin, the audio
+               seconds from a note's onset to the first poll that shows it,
+               poll_events() ms, finalize() ms; device-busy ms and launches
+               a tile (torch.profiler over eight tiles); the kernels at the
+               live shapes against their plain versions and the one-CTA
+               variant, with bound and serial floor.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -86,11 +109,13 @@ from aegis_tpu_torch.core import pyin_cuda
 from aegis_tpu_torch.core.analyze import (dequant_transport, dispatch_analyze,
                                           fetch_analyze, pad_to_bucket,
                                           quantize_pcm8)
+from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.core.tables import tables_from_numpy
 from aegis_tpu_torch.engine import turbo as tturbo
 from aegis_tpu_torch.engine.engine import AegisEngine
 from aegis_tpu_torch.engine.financial import AegisFinancialEngine
 from aegis_tpu_torch.engine.folder import transcribe_folder
+from aegis_tpu_torch.engine.realtime import StreamingTranscriber
 from aegis_tpu_torch.io import write_wav
 from aegis_tpu_torch.midi import midi_to_notes
 from aegis_tpu_torch.tools.bench_viterbi import (band_and_table, cuda_ms,
@@ -110,6 +135,9 @@ KERNEL_SOURCE = "aegis_tpu_torch/csrc/viterbi.cu"
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 N_SMS = 132
+# the live transcriber's presets: (tile, halo) frames
+LIVE_PRESETS = ((24, 8), (64, 32))
+CARD = {"nvidia_smi": None}   # the card's name and power limit, set by phase 1
 REPLACES = {"viterbi_fwd": "aegis_tpu/core/pyin_pallas.py:98",
             "viterbi_back": "aegis_tpu/core/pyin_pallas.py:198"}
 
@@ -153,6 +181,7 @@ def phase_device() -> torch.device:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    CARD["nvidia_smi"] = smi
     dev = resolve_device("cuda")
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__,
@@ -412,11 +441,16 @@ def phase_times(dev, tracks, shapes) -> dict:
 def run_counted(fn):
     """fn() with every launch count set to 0 just before; returns (result,
     counts, the batch size of each kernel's last launch)."""
-    for k in pyin_cuda.LAUNCHES:
-        pyin_cuda.LAUNCHES[k] = 0
+    reset_counts()
     out = fn()
     torch.cuda.synchronize()
     return out, dict(pyin_cuda.LAUNCHES), dict(pyin_cuda.LAST_BATCH)
+
+
+def reset_counts() -> None:
+    for counts in (pyin_cuda.LAUNCHES, pyin_cuda.SEQUENCES):
+        for k in counts:
+            counts[k] = 0
 
 
 def expect_launches(name: str, counts: dict, batch: dict, n: int,
@@ -724,6 +758,243 @@ def phase_times2(dev, tracks, folder: str, y10, tile_shapes) -> dict:
     return kernel_ms
 
 
+# --------------------------------------------------------------------------
+# The live transcribers
+# --------------------------------------------------------------------------
+
+def phase_live_kernels(dev, tracks, errs) -> dict:
+    """Both kernels at the live launch shapes, on the real observations of
+    the first, a middle and the last tile of 10 s of each bench track.
+    Returns the middle tile's observations per (rate, tile, halo)."""
+    shapes = {}
+    for sr, (y, _) in tracks.items():
+        for tile, halo in LIVE_PRESETS:
+            turbo = TurboConfig(tile_frames=tile, halo_frames=halo)
+            obs, vprob, tables = tile_obs(y[:10 * sr], sr, dev, turbo)
+            n_t = obs.shape[0]
+            for k in sorted({0, n_t // 2, n_t - 1}):
+                compare_kernels(
+                    f"live_{sr}_T{tile + 2 * halo}_tile{k}",
+                    *tpyin.decode_inputs(obs[k:k + 1], vprob[k:k + 1]),
+                    tables.band, tables.band_tab, tables.half_width, 1.0, errs)
+            mid = slice(n_t // 2, n_t // 2 + 1)
+            shapes[(sr, tile, halo)] = (obs[mid].contiguous(),
+                                        vprob[mid].contiguous(), tables)
+    return shapes
+
+
+def live_transcriber(dev, sr: int, tile: int, halo: int, financial: bool):
+    kw = {"financial": True} if financial else {"confidence_threshold": 0.5}
+    return StreamingTranscriber(audio=AudioConfig(sample_rate=sr),
+                                tile_frames=tile, halo_frames=halo,
+                                device=dev, **kw)
+
+
+def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
+                 chunk_s: float = 0.5, poll_s: float = 2.0):
+    """One live session on the card: ``y`` fed in chunks, polled every
+    ``poll_s`` of audio (and after every chunk until the first note shows),
+    finalized.  Returns (final events, stats); raises when a kernel was not
+    launched exactly once a tile at B = 1 or a sampled poll differs from
+    the cache-free one."""
+    rt = live_transcriber(dev, sr, tile, halo, financial)
+    chunk = int(chunk_s * sr)
+    n_polls = int(len(y) / sr / poll_s)
+    sampled = {0, n_polls // 2, n_polls - 1}
+    tile_ms, poll_ms, checked = [], [], []
+    feed_s, next_poll, polls, first_event = 0.0, poll_s, 0, None
+    reset_counts()
+    for i in range(0, len(y), chunk):
+        t0 = time.perf_counter()
+        done = rt.feed(y[i:i + chunk])   # ends in the rows' device->host copy
+        dt = time.perf_counter() - t0
+        feed_s += dt
+        tile_ms += [1e3 * dt / max(done, 1)] * done
+        fed_s = min(i + chunk, len(y)) / sr
+        due = fed_s >= next_poll
+        if not due and first_event is not None:
+            continue
+        t0 = time.perf_counter()
+        events = rt.poll_events()
+        dt = time.perf_counter() - t0
+        if events and first_event is None:
+            # audio fed when a poll first shows a note, less its onset
+            first_event = fed_s - min(e["start"] for e in events) * HOP / sr
+        if due:
+            next_poll += poll_s
+            poll_ms.append(1e3 * dt)
+            if polls in sampled:
+                if events != rt._poll_full():
+                    raise AssertionError(
+                        f"live: poll {polls} differs from _poll_full()")
+                checked.append(polls)
+            polls += 1
+    t0 = time.perf_counter()
+    final = rt.finalize()
+    finalize_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    counts = dict(pyin_cuda.LAUNCHES)
+    tiles = len(rt._rows)
+    for k in counts:
+        if counts[k] != tiles or pyin_cuda.SEQUENCES[k] != tiles:
+            raise AssertionError(
+                f"live: {k} launched {counts[k]} times with "
+                f"{pyin_cuda.SEQUENCES[k]} sequences over {tiles} tiles")
+    if len(checked) != len(sampled) or not final:
+        raise AssertionError(f"live: polls checked {checked}, "
+                             f"{len(final)} events")
+    warm = sorted(tile_ms[1:])
+    stats = {
+        "sr": sr, "tile": tile, "halo": halo, "audio_s": len(y) / sr,
+        "engine": "financial" if financial else "v1", "tiles": tiles,
+        "launches": counts, "lookahead_s": rt.lookahead_s,
+        "tile_wall_ms_median": warm[len(warm) // 2],
+        "tile_wall_ms_p95": warm[int(0.95 * (len(warm) - 1))],
+        "tile_wall_ms_first": tile_ms[0],
+        "feed_s": feed_s, "ingest_margin": len(y) / sr / feed_s,
+        "first_event_audio_s": first_event,
+        "polls": polls, "polls_equal_to_poll_full": checked,
+        "poll_ms_first": poll_ms[0], "poll_ms_last": poll_ms[-1],
+        "poll_ms_median_last_quarter": float(np.median(
+            poll_ms[-max(len(poll_ms) // 4, 1):])),
+        "finalize_ms": finalize_ms, "events": len(final),
+        "card": CARD["nvidia_smi"]}
+    return final, stats
+
+
+def tiled_events(dev, y, sr: int, tile: int, halo: int, financial: bool):
+    """The tiled engine's events on the card at the same tile and halo."""
+    out = tturbo.run_analyze_turbo(
+        y, AudioConfig(sample_rate=sr), CFG,
+        turbo=TurboConfig(tile_frames=tile, halo_frames=halo),
+        fetch_mel=False, financial=financial, device=dev)
+    if financial:
+        return AegisFinancialEngine(sample_rate=sr,
+                                    device=dev).extract_events(out)[0]
+    return extract_events_v1(
+        rake_mask=out["rake_mask"], f0=np.nan_to_num(out["f0"]),
+        voiced_flag=out["voiced_flag"], active_probs=out["voiced_probs"],
+        rms=out["rms"], sr=sr, hop_length=HOP, confidence_threshold=0.5,
+        onset_env=out["onset_env"])
+
+
+def phase_live(dev, tracks, y10, truth10, total: dict, per_call: dict) -> list:
+    """Returns every session's stats for the times phase."""
+    long_ = {22050: (y10, truth10)}
+    sessions = [   # (track, rate, tile, halo, financial, also on the CPU)
+        (tracks, 22050, 24, 8, False, True),
+        (tracks, 44100, 24, 8, False, False),
+        (tracks, 22050, 64, 32, False, False),
+        (tracks, 44100, 64, 32, False, False),
+        (tracks, 22050, 24, 8, True, True),
+        (long_, 22050, 24, 8, False, False),
+        (long_, 22050, 24, 8, True, False),
+    ]
+    all_stats = []
+    for src, sr, tile, halo, financial, on_cpu in sessions:
+        y, truth = src[sr]
+        final, stats = live_session(dev, y, sr, tile, halo, financial)
+        add_counts(total, stats["launches"])
+        if not financial and src is tracks:
+            per_call[("live", sr, tile, halo)] = stats["launches"]
+        stats["f1_vs_tiled_engine"] = f1_of(
+            secs(tiled_events(dev, y, sr, tile, halo, financial), sr),
+            secs(final, sr))
+        stats["truth_f1"] = f1_of(truth, secs(final, sr))
+        stats["truth_notes"] = len(truth)
+        gates = [stats["f1_vs_tiled_engine"], stats["truth_f1"]]
+        if on_cpu:
+            cpu = live_transcriber("cpu", sr, tile, halo, financial)
+            cpu.feed(y)
+            ev_cpu = cpu.finalize()
+            stats["f1_vs_cpu_session"] = f1_of(secs(ev_cpu, sr),
+                                               secs(final, sr))
+            stats["events_equal_cpu_session"] = [
+                (e["note"], e["start"], e["end"]) for e in final] == [
+                (e["note"], e["start"], e["end"]) for e in ev_cpu]
+            gates.append(stats["f1_vs_cpu_session"])
+        emit({"phase": "live", **stats})
+        if min(gates) < 0.99:
+            raise AssertionError(f"live {stats['engine']} {sr} Hz "
+                                 f"({tile}, {halo}): F1 {gates} below 0.99")
+        all_stats.append(stats)
+    return all_stats
+
+
+def live_profile(dev, y, sr: int, tile: int, halo: int, financial: bool,
+                 tile_wall_ms: float, n: int = 8) -> dict:
+    """Device-busy ms and launches a tile: torch.profiler over ``n`` warm
+    tiles, each fed as exactly one tile's samples.  The idle share is taken
+    against ``tile_wall_ms``, the session's median without the profiler
+    (tracing every launch several times over slows the host)."""
+    rt = live_transcriber(dev, sr, tile, halo, financial)
+    tile_samp = tile * HOP
+    pos = rt._ctx + 4 * tile_samp
+    rt.feed(y[:pos])
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            if rt.feed(y[pos:pos + tile_samp]) != 1:
+                raise AssertionError("live profile: a feed of one tile's "
+                                     "samples did not run one tile")
+            pos += tile_samp
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+
+    def dev_us(a):
+        return getattr(a, "self_device_time_total",
+                       getattr(a, "self_cuda_time_total", 0.0))
+
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA
+               and not a.key.startswith("aegis.")]
+    busy_ms = sum(dev_us(a) for a in kernels) / 1000.0 / n
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"phase": "profile", "what": "live_tile", "sr": sr, "tile": tile,
+            "halo": halo, "engine": "financial" if financial else "v1",
+            "tiles_profiled": n, "wall_ms_a_tile_profiled": wall_ms,
+            "device_busy_ms_a_tile": busy_ms,
+            "kernel_launches_a_tile": sum(a.count for a in kernels) / n,
+            "tile_wall_ms_median_of_the_session": tile_wall_ms,
+            "idle_share": 1.0 - busy_ms / tile_wall_ms,
+            "top_device_kernels_ms_a_tile": [
+                [a.key[:70], dev_us(a) / 1000.0 / n, a.count / n]
+                for a in top],
+            "card": CARD["nvidia_smi"]}
+
+
+def phase_times_live(dev, tracks, live_shapes, all_stats) -> dict:
+    wall = {}
+    for stats in all_stats:
+        emit({"phase": "times", "what": "live_session", **stats})
+        if stats["audio_s"] == 60.0:
+            wall[(stats["sr"], stats["tile"], stats["halo"],
+                  stats["engine"] == "financial")] = stats["tile_wall_ms_median"]
+    for key in ((22050, 24, 8, False), (22050, 24, 8, True),
+                (44100, 24, 8, False), (22050, 64, 32, False)):
+        emit(live_profile(dev, tracks[key[0]][0], *key, wall[key]))
+    kernel_ms = {}
+    for key, (obs, vprob, tables) in live_shapes.items():
+        row = time_kernels(obs, vprob, tables, False)
+        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+        n, w = CFG.n_pitch_bins, tables.half_width
+        # the cluster the wrapper picks beside one CTA a sequence, in turns
+        picked = pyin_cuda.pick_forward_variant(1, N_SMS)
+        turns = [cuda_ms(lambda v=v: forward_variant(lo_v, lo_u,
+                                                     tables.band_tab, n, w, *v))
+                 for v in (picked, (88, 1), (88, 1), picked)]
+        row["viterbi_fwd_picked_onecta_onecta_picked"] = turns
+        kernel_ms[key] = row
+        emit({"phase": "times", "what": "viterbi_live", "sr": key[0],
+              "tile": key[1], "halo": key[2], **row["shape"],
+              "picked_variant": list(picked), "median_ms": row,
+              "card": CARD["nvidia_smi"]})
+    return kernel_ms
+
+
 def add_counts(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -765,6 +1036,11 @@ def main() -> int:
         timed("stream", phase_stream, dev, y10, truth10, total, per_call)
         tiles_ms = timed("times_modes", phase_times2, dev, tracks, folder, y10,
                          tile_shapes)
+    live_shapes = timed("live_kernels", phase_live_kernels, dev, tracks, errs)
+    live_stats = timed("live", phase_live, dev, tracks, y10, truth10, total,
+                       per_call)
+    live_ms = timed("times_live", phase_times_live, dev, tracks, live_shapes,
+                    live_stats)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -780,7 +1056,11 @@ def main() -> int:
          tiles_ms["tiles60_44100"]),
         ("turbo_mode stream, 10 minutes at 22 050 Hz in slabs of 16 tiles",
          per_call["stream_slab_22050"], tiles_ms["stream_slab_22050"]),
-    ]
+    ] + [
+        (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
+         "launch", per_call[("live", sr, tile, halo)],
+         live_ms[(sr, tile, halo)])
+        for sr in (22050, 44100) for tile, halo in LIVE_PRESETS]
 
     def entry(name: str) -> dict:
         first = by_shape[0][2]

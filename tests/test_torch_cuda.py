@@ -43,6 +43,12 @@ CASES = {
     # haloed 1024 + 2*64 frame tiles, one CTA each
     "tiles_b6_w51": (51, [(1152, 30 + i, 100 + 50 * i, 6, (-1, 0, 1), True)
                           for i in range(6)]),
+    # one live tile a launch: tile + 2 * halo frames at the (24, 8) and the
+    # (64, 32) presets, both rates (the backtrace has one chunk / two chunks)
+    "live_t40_w101": (101, [(40, 61, 210, 8, (-1, 0, 1), True)]),
+    "live_t128_w101": (101, [(128, 62, 180, 8, (-2, 0, 2), True)]),
+    "live_t40_w51": (51, [(40, 63, 230, 4, (-1, 0, 1), True)]),
+    "live_t128_w51": (51, [(128, 64, 120, 4, (0, 1), True)]),
 }
 
 
@@ -193,3 +199,41 @@ def test_forward_kernel_takes_scores_that_are_no_log_probabilities(cuda, how):
     states = pyin_cuda.viterbi_back(*got[2:], *got[:2])
     assert torch.equal(states, pyin_cuda.viterbi_back_plain(
         plain[2], plain[0], plain[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("financial", [False, True], ids=["v1", "financial"])
+def test_live_session_launches_each_kernel_once_a_tile(cuda, financial):
+    """The live transcriber on the card: one launch of each kernel a tile at
+    B = 1, events equal to the same session on the CPU by note, start and
+    end, and the discrete rows on at least 0.99 of the frames (the card's
+    matmuls sum in another order, so a frame on a decision edge may flip)."""
+    from aegis_tpu_torch.config import AudioConfig
+    from aegis_tpu_torch.engine.realtime import StreamingTranscriber
+    from aegis_tpu_torch.tools.signal_gen import generate_test_track
+
+    y, _ = generate_test_track(sr=22050)
+    kw = {"financial": True} if financial else {"confidence_threshold": 0.5}
+    sessions = {}
+    for dev in ("cuda", "cpu"):
+        rt = StreamingTranscriber(audio=AudioConfig(sample_rate=22050),
+                                  device=dev, **kw)
+        for counts in (pyin_cuda.LAUNCHES, pyin_cuda.SEQUENCES):
+            for k in counts:
+                counts[k] = 0
+        for i in range(0, len(y), 7000):
+            rt.feed(y[i:i + 7000])
+        assert rt.poll_events() == rt._poll_full()
+        events = rt.finalize()
+        n = len(rt._rows) if dev == "cuda" else 0
+        assert pyin_cuda.LAUNCHES == pyin_cuda.SEQUENCES == {
+            "viterbi_fwd": n, "viterbi_back": n}
+        sessions[dev] = (np.concatenate(rt._rows), events)
+    (rows_g, ev_g), (rows_c, ev_c) = sessions["cuda"], sessions["cpu"]
+    assert ev_g and [(e["note"], e["start"], e["end"]) for e in ev_g] == \
+        [(e["note"], e["start"], e["end"]) for e in ev_c]
+    for i, k in enumerate(rt._rows_spec):
+        if k in ("f0", "voiced_flag", "rake_mask", "mute_mask"):
+            same = np.isclose(rows_g[:, i], rows_c[:, i], rtol=1e-6,
+                              equal_nan=True)
+            assert same.mean() >= 0.99, (k, same.mean())

@@ -131,7 +131,11 @@ def test_raw_data_roundtrip_and_bpm(tmp_path, raws):
 
 def test_unported_modes_raise(tmp_path):
     """What stays unported raises: the neural pitch backend on both facades,
-    the poly and auto folder engines; an unknown turbo mode is an error."""
+    the poly and auto folder engines, the polyphonic live transcriber; an
+    unknown turbo mode is an error."""
+    from aegis_tpu_torch.engine.realtime import StreamingPolyTranscriber
+    with pytest.raises(NotImplementedError, match="item 10"):
+        StreamingPolyTranscriber(sample_rate=22050)
     y = np.zeros(22050, np.float32)
     eng = AegisEngine(sample_rate=22050, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -183,7 +187,8 @@ def test_cli_transcribe(tmp_path):
 
 def test_port_never_imports_jax():
     """With jax made unimportable, the port still runs the v1 path fused,
-    tiled and streamed, the financial engine, and the folder sweep."""
+    tiled and streamed, the financial engine, the folder sweep, and a live
+    v1 and a live financial session."""
     code = (
         "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"
@@ -206,6 +211,14 @@ def test_port_never_imports_jax():
         "assert fin.audio_to_midi_financial(y, os.path.join(d, 'f.mid'))\n"
         "assert fin.analyze(y, turbo_mode='stream')['trend'].shape == raw['f0'].shape\n"
         "assert transcribe_folder(d, engine='financial', device='cpu')\n"
+        "from aegis_tpu_torch.config import AudioConfig\n"
+        "from aegis_tpu_torch.engine.realtime import StreamingTranscriber\n"
+        "for live_fin in (False, True):\n"
+        "    rt = StreamingTranscriber(audio=AudioConfig(sample_rate=22050),\n"
+        "                              financial=live_fin, device='cpu')\n"
+        "    for i in range(0, len(y), 5000):\n"
+        "        rt.feed(y[i:i + 5000])\n"
+        "    assert rt.poll_events() and rt.finalize(), live_fin\n"
         "loaded = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert all(sys.modules[m] is None for m in loaded), loaded\n"
         "print('ok', len(events))\n")
@@ -218,7 +231,7 @@ def test_port_never_imports_jax():
 
 
 # what a user of the port runs, on the CPU: fused v1, tiles, stream,
-# financial, the folder sweep
+# financial, the folder sweep, the live transcribers
 _PORT_PATHS = (
     "import io, os, tempfile\n"
     "import numpy as np\n"
@@ -242,7 +255,16 @@ _PORT_PATHS = (
     "assert fin.audio_to_midi_financial(y, os.path.join(d, 'f.mid'))\n"
     "assert fin.analyze(y, turbo_mode='stream')['trend'].shape == raw['f0'].shape\n"
     "for engine in ('v1', 'financial'):\n"
-    "    assert transcribe_folder(d, engine=engine, device='cpu')\n")
+    "    assert transcribe_folder(d, engine=engine, device='cpu')\n"
+    "from aegis_tpu_torch.config import AudioConfig\n"
+    "from aegis_tpu_torch.engine.realtime import StreamingTranscriber\n"
+    "for live_fin in (False, True):\n"
+    "    rt = StreamingTranscriber(audio=AudioConfig(sample_rate=22050),\n"
+    "                              financial=live_fin, device='cpu')\n"
+    "    for i in range(0, len(y), 5000):\n"
+    "        rt.feed(y[i:i + 5000])\n"
+    "    assert rt.poll_events() and rt.finalize(), live_fin\n"
+)
 
 
 def test_port_never_imports_the_jax_package():

@@ -354,7 +354,8 @@ def test_every_device_argument_defaults_to_the_card():
                 "engine.turbo.run_analyze_streamed",
                 "engine.engine.AegisEngine",
                 "engine.financial.AegisFinancialEngine",
-                "engine.folder.transcribe_folder"}
+                "engine.folder.transcribe_folder",
+                "engine.realtime.StreamingTranscriber"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -364,14 +365,16 @@ def test_every_device_argument_defaults_to_the_card():
 @pytest.mark.parametrize("entry", [
     "pyin", "run_analyze", "dispatch_analyze", "run_analyze_turbo",
     "run_analyze_batch", "run_analyze_streamed", "AegisEngine",
-    "AegisFinancialEngine", "transcribe_folder", "resolve_device"])
+    "AegisFinancialEngine", "transcribe_folder", "StreamingTranscriber",
+    "resolve_device"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
     raises, and none runs the plain versions on the CPU instead."""
     import aegis_tpu_torch
     from aegis_tpu_torch.core import analyze
-    from aegis_tpu_torch.engine import engine, financial, folder, turbo
+    from aegis_tpu_torch.engine import (engine, financial, folder, realtime,
+                                        turbo)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     y = np.zeros(4096, np.float32)
     audio = TAudioConfig(sample_rate=SR)
@@ -387,6 +390,7 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
         "AegisEngine": lambda: engine.AegisEngine(sample_rate=SR),
         "AegisFinancialEngine": lambda: financial.AegisFinancialEngine(),
         "transcribe_folder": lambda: folder.transcribe_folder(str(tmp_path)),
+        "StreamingTranscriber": lambda: realtime.StreamingTranscriber(),
         "resolve_device": lambda: aegis_tpu_torch.resolve_device(),
     }
     with pytest.raises(RuntimeError, match="is_available"):
