@@ -6,7 +6,9 @@ versions):
 
   transcribe  WAV/MP3 -> MIDI via the v1 engine (two-phase)
   financial   WAV/MP3 -> MIDI via the v2 financial engine (5-phase)
-  batch       every matching file of a folder -> MIDI (v1 or financial)
+  poly        WAV/MP3 -> MIDI via the polyphonic CQT engine
+  tabs        WAV/MP3 -> ASCII guitar tablature (--engine v1 | poly)
+  batch       every matching file of a folder -> MIDI (v1, financial, poly)
   stream      live: s16le PCM on stdin -> JSON event lines, MIDI at EOF
 """
 
@@ -77,6 +79,68 @@ def cmd_financial(args) -> int:
     return 0
 
 
+def cmd_poly(args) -> int:
+    from aegis_tpu_torch.engine.poly import AegisPolyEngine
+
+    eng = AegisPolyEngine(sample_rate=args.sr, device=args.device)
+    out = _out_path(args)
+    analysis = eng.analyze(args.input, start_time=args.start,
+                           end_time=args.end, turbo_mode=args.turbo)
+    if analysis is None:
+        print("error: empty audio", file=sys.stderr)
+        return 1
+    events = eng.extract_events(analysis, out, **_extract_kwargs(args))
+    print(f"{len(events)} events -> {out}")
+    return 0
+
+
+def cmd_tabs(args) -> int:
+    from aegis_tpu_torch.midi.tabs import generate_tabs, render_ascii_tab
+
+    if args.engine == "poly":
+        if args.pitch_backend != "pyin":
+            print("error: the polyphonic engine has no neural backend",
+                  file=sys.stderr)
+            return 2
+        from aegis_tpu_torch.engine.poly import AegisPolyEngine
+
+        peng = AegisPolyEngine(sample_rate=args.sr, device=args.device)
+        analysis = peng.analyze(args.input, start_time=args.start,
+                                end_time=args.end, turbo_mode=args.turbo)
+        if analysis is None:
+            print("error: empty audio", file=sys.stderr)
+            return 1
+        events = peng.extract_events(analysis, args.output,
+                                     **_extract_kwargs(args))
+        chords = peng.label_chords(events)
+        if chords:
+            print("  ".join(f"{c['time_sec']:.2f}s {c['name']}"
+                            for c in chords))
+            print()
+        print(render_ascii_tab(peng.generate_tabs(events)))
+        if args.output:
+            print(f"# wrote {args.output}", file=sys.stderr)
+        return 0
+
+    from aegis_tpu_torch.engine.engine import AegisEngine
+
+    eng = AegisEngine(sample_rate=args.sr, device=args.device)
+    raw = eng.audio_to_midi(args.input, None, start_time=args.start,
+                            end_time=args.end, turbo_mode=args.turbo,
+                            rake_sensitivity=args.rake,
+                            pitch_backend=args.pitch_backend)
+    if raw is None:
+        print("error: empty audio", file=sys.stderr)
+        return 1
+    # the optional positional writes the MIDI alongside the ASCII tab
+    # (extract_events encodes when given an output target)
+    events = eng.extract_events(raw, args.output, **_extract_kwargs(args))
+    print(render_ascii_tab(generate_tabs(events)))
+    if args.output:
+        print(f"# wrote {args.output}", file=sys.stderr)
+    return 0
+
+
 def cmd_batch(args) -> int:
     """Folder sweep: every track dispatched to the device before any fetch."""
     from aegis_tpu_torch.engine.folder import transcribe_folder
@@ -106,8 +170,9 @@ def cmd_stream(args) -> int:
     ``ffmpeg -f s16le -ac 1`` or ``sox -t raw -e signed -b 16`` emit, or a
     microphone bridge), prints a JSON line of the live event list every
     ``--poll-every`` seconds of audio, and on EOF finalizes — writing MIDI
-    when an output path is given.  Engines: v1 and financial
-    (engine.realtime.StreamingTranscriber); poly is not ported and raises.
+    when an output path is given.  Engines: v1, financial
+    (engine.realtime.StreamingTranscriber) and poly
+    (engine.realtime.StreamingPolyTranscriber).
 
         ffmpeg -i in.wav -f s16le -ac 1 -ar 22050 - | \
             python -m aegis_tpu_torch stream --engine financial out.mid
@@ -131,7 +196,8 @@ def cmd_stream(args) -> int:
     elif args.engine == "v1":
         kw["confidence_threshold"] = 0.5
     if args.engine == "poly":
-        rt = StreamingPolyTranscriber(sample_rate=args.sr, **kw, **lat)
+        rt = StreamingPolyTranscriber(sample_rate=args.sr,
+                                      device=args.device, **kw, **lat)
     else:
         rt = StreamingTranscriber(audio=AudioConfig(sample_rate=args.sr),
                                   financial=(args.engine == "financial"),
@@ -139,7 +205,8 @@ def cmd_stream(args) -> int:
     print(f"# engine={args.engine} sr={args.sr} "
           f"lookahead={rt.lookahead_s:.2f}s", file=sys.stderr)
 
-    hop = rt.audio.hop_length
+    # hop differs by engine/sr (poly scales its window with sr)
+    hop = rt.hop if args.engine == "poly" else rt.audio.hop_length
     spf = hop / float(args.sr)  # seconds per frame
 
     def _jsonable(events, live):
@@ -180,7 +247,7 @@ def cmd_stream(args) -> int:
         print("# no events detected", file=sys.stderr)
     if args.output:
         # engine-matched encoders, same defaults as the offline facades:
-        # v1 program 27, financial named-track layout
+        # poly program 25, v1 program 27, financial named-track layout
         if args.engine == "financial":
             from aegis_tpu_torch.midi.encode import events_to_midi_financial
 
@@ -190,7 +257,7 @@ def cmd_stream(args) -> int:
             from aegis_tpu_torch.midi.encode import events_to_midi
 
             program = (args.midi_program if args.midi_program is not None
-                       else 27)
+                       else 25 if args.engine == "poly" else 27)
             events_to_midi(events, args.sr, hop,
                            midi_program=program, output=args.output)
         print(f"# wrote {args.output}", file=sys.stderr)
@@ -203,7 +270,8 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="command", required=True)
     for name, fn in (("transcribe", cmd_transcribe),
-                     ("financial", cmd_financial)):
+                     ("financial", cmd_financial),
+                     ("poly", cmd_poly), ("tabs", cmd_tabs)):
         p = sub.add_parser(name)
         p.add_argument("input", help="input audio file (wav/mp3/...)")
         p.add_argument("output", nargs="?", default=None,
@@ -219,17 +287,20 @@ def main(argv=None) -> int:
                        choices=["off", "tiles", "stream", "auto"],
                        help="off = the fused program, tiles = the tiled "
                             "program, stream = bounded-memory slabs, auto = "
-                            "stream past 240 s, else fused")
+                            "stream past 240 s, else fused (poly: stream "
+                            "runs the tiles)")
         p.add_argument("--no-onsets", action="store_true",
                        help="disable onset-envelope event refinement "
                             "(re-attack splitting + attack-time snap); "
                             "matches the reference's merge/lag semantics")
         p.add_argument("--sr", type=int,
-                       default=44100 if name == "transcribe" else 22050)
-        p.add_argument("--rake", type=float, default=0.6)
-        p.add_argument("--pitch-backend", default="pyin",
-                       choices=["pyin", "neural"],
-                       help="only pyin is ported; neural raises")
+                       default=44100 if name in ("transcribe", "tabs")
+                       else 22050)
+        if name != "poly":  # the CQT engine has no pitch backend
+            p.add_argument("--rake", type=float, default=0.6)
+            p.add_argument("--pitch-backend", default="pyin",
+                           choices=["pyin", "neural"],
+                           help="only pyin is ported; neural raises")
         if name == "financial":
             p.add_argument("--pitch-source", default="pyin",
                            choices=["pyin", "trend"],
@@ -237,6 +308,11 @@ def main(argv=None) -> int:
                                 "the median-smoothed pYIN f0 (default) or "
                                 "the consensus trend (the reference's v2 "
                                 "semantics)")
+        if name == "tabs":
+            p.add_argument("--engine", default="v1",
+                           choices=["v1", "poly"],
+                           help="poly = chord-capable engine: chord-aware "
+                                "fingering + named chord line")
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
         p.set_defaults(fn=fn)
 
@@ -254,11 +330,11 @@ def main(argv=None) -> int:
                    help="only pyin is ported; neural raises")
     p.add_argument("--engine", default="v1",
                    choices=["v1", "financial", "poly", "auto"],
-                   help="pipeline per track: v1 two-phase (default) or "
-                        "financial 5-phase; poly and auto raise")
+                   help="pipeline per track: v1 two-phase (default), "
+                        "financial 5-phase or polyphonic CQT; auto raises")
     p.add_argument("--transport", default="int8",
                    choices=["int8", "int16", "float32"],
-                   help="audio upload packing")
+                   help="audio upload packing (poly keeps its own)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_batch)
 
@@ -268,7 +344,7 @@ def main(argv=None) -> int:
                    help="optional .mid written at EOF")
     p.add_argument("--engine", default="v1",
                    choices=["v1", "financial", "poly"],
-                   help="v1 (default) or financial; poly raises")
+                   help="v1 (default), financial or poly")
     p.add_argument("--sr", type=int, default=22050)
     p.add_argument("--confidence", type=float, default=None)
     p.add_argument("--poll-every", type=float, default=2.0,
@@ -280,8 +356,8 @@ def main(argv=None) -> int:
     p.add_argument("--halo-frames", type=int, default=None,
                    help="halo context frames per side (default 8)")
     p.add_argument("--midi-program", type=int, default=None,
-                   help="GM program of the v1 engine's MIDI (default 27); "
-                        "financial uses its named-track encoder")
+                   help="GM program (default: the engine's own, poly 25, "
+                        "v1 27; financial uses its named-track encoder)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_stream)
 

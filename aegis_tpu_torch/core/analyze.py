@@ -19,7 +19,7 @@ zero-padded bucket tail, so skipping the padding would change edge frames.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -53,6 +53,23 @@ def pad_to_bucket(y: np.ndarray) -> np.ndarray:
     if b == len(y):
         return y
     return np.pad(y, (0, b - len(y)))
+
+
+def reflect_head(x: np.ndarray, ctx: int, half_window: int,
+                 true_len: Optional[int] = None) -> np.ndarray:
+    """Track-head left context for a FIRST tile: the offline frame_signal
+    'reflect' pad convention (x[1..m] reversed, m bounded by the window
+    half and the true track length) placed at the tail of a ``ctx``-wide
+    zero pad.  ONE definition shared by the offline poly turbo path and
+    the live streaming transcribers — the streamed==offline parity tests
+    depend on the two conventions staying byte-identical.  Works on 1-D
+    samples or a (B, n) batch (last axis = time)."""
+    L = x.shape[-1] if true_len is None else true_len
+    m = min(half_window, max(L - 1, 0))
+    out = np.zeros(x.shape[:-1] + (ctx,), x.dtype)
+    if m:
+        out[..., ctx - m:] = x[..., m:0:-1]
+    return out
 
 
 def quantize_pcm16(y: np.ndarray):

@@ -1,5 +1,9 @@
-"""Onset strength (PyTorch) and host onset picking, the v1 subset of
-``aegis_tpu/core/cqt.py``.
+"""Pseudo-CQT, CQT chroma and onset strength (PyTorch) and host onset
+picking: the counterpart of ``aegis_tpu/core/cqt.py``.
+
+``pseudo_cqt_t`` is |STFT|^2 projected onto the log-frequency filterbank
+of ``core.filters.cqt_filterbank`` (one matmul), ``chroma_cqt_t`` folds it
+to 12 pitch classes; their tables come from ``core.tables.poly_tables``.
 
 ``pick_onsets``, ``pick_onsets_incremental`` and ``split_events_at_onsets``
 are NumPy copies, code unchanged, of the JAX module's host helpers.
@@ -14,6 +18,21 @@ import numpy as np
 import torch
 
 from aegis_tpu_torch.core import dsp
+
+CQT_FMIN_MIDI = 24.0  # C1, matching filters.cqt_filterbank's default fmin
+
+
+def pseudo_cqt_t(y: torch.Tensor, hop_length: int, tables) -> torch.Tensor:
+    """Pseudo-CQT power, time-major (T, n_bins); ``tables`` is a
+    ``core.tables.PolyTables`` (window, DFT pair, CQT filterbank)."""
+    return dsp.stft_power(y, hop_length, tables) @ tables.cqt_fb_t
+
+
+def chroma_cqt_t(y: torch.Tensor, hop_length: int, tables) -> torch.Tensor:
+    """Column-normalized CQT chroma, time-major (T, 12)."""
+    ch = pseudo_cqt_t(y, hop_length, tables) @ tables.chroma_fold_t
+    peak = torch.amax(ch, dim=1, keepdim=True)
+    return ch / torch.clamp_min(peak, 1e-10)
 
 
 def onset_from_db(mel_db_t: torch.Tensor, lag: int = 1) -> torch.Tensor:

@@ -4,7 +4,10 @@ Every table comes from this package's copy of the NumPy function the JAX
 package calls (``core/filters.py``, ``ref/pyin_ref.py`` and, for the
 financial trend stack, ``ref/trend_ref.py`` and the Kalman gain recurrence
 of ``aegis_tpu/core/trend.py``) in float32, so both packages compute from
-bit-identical constants.
+bit-identical constants.  The polyphonic programs have a table set of their
+own (``PolyTables``): their window follows the sample rate (n_fft 2048 at
+22 050 Hz, 4096 at 44 100 Hz, where the DFT pair alone is 67 MB), so it is
+built once per (sr, n_fft, device) and kept on the device.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import numpy as np
 import torch
 
 from aegis_tpu_torch.config import AudioConfig, PyinConfig
-from aegis_tpu_torch.core.filters import dft_matrices, hann_window, mel_filterbank
+from aegis_tpu_torch.core.filters import (chroma_fold, cqt_filterbank,
+                                          dft_matrices, hann_window,
+                                          mel_filterbank)
 from aegis_tpu_torch.ref.pyin_ref import beta_threshold_probs, local_transition
 from aegis_tpu_torch.ref.trend_ref import _savgol_kernel
 
@@ -169,4 +174,43 @@ def tables_from_numpy(audio: AudioConfig, pyin_cfg: PyinConfig,
         band_tab=dev(band_class_table(band, pyin_cfg.n_pitch_bins, w)),
         half_width=w,
         bin_hz=bin_frequencies(pyin_cfg).to(device),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PolyTables:
+    """Constants of the polyphonic programs (core/poly.py).  The first three
+    fields carry the names ``dsp.stft_power`` reads off ``Tables``."""
+    window: torch.Tensor         # (n_fft,) periodic Hann
+    dft_cos: torch.Tensor        # (n_fft, 1 + n_fft//2)
+    dft_sin: torch.Tensor        # (n_fft, 1 + n_fft//2)
+    cqt_fb_t: torch.Tensor       # (1 + n_fft//2, n_bins)
+    mel_fb_t: torch.Tensor       # (1 + n_fft//2, n_mels)
+    chroma_fold_t: torch.Tensor  # (n_bins, 12)
+    supp: torch.Tensor           # (n_bins, n_bins) harmonic comb, row = f0 bin
+    sub: torch.Tensor            # (n_bins, n_bins) comb with the widened rim
+    bins_per_octave: int
+
+
+@functools.lru_cache(maxsize=8)
+def poly_tables(sr: int, n_fft: int, n_bins: int, bins_per_octave: int,
+                n_mels: int, device: torch.device) -> PolyTables:
+    """All constant tables of one polyphonic configuration on ``device``."""
+    from aegis_tpu_torch.core.poly import (harmonic_subtraction_matrix,
+                                           harmonic_suppression_matrix)
+
+    def dev(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+    cos_m, sin_m = dft_matrices(n_fft)
+    return PolyTables(
+        window=dev(hann_window(n_fft)),
+        dft_cos=dev(cos_m),
+        dft_sin=dev(sin_m),
+        cqt_fb_t=dev(cqt_filterbank(sr, n_fft, n_bins, bins_per_octave).T),
+        mel_fb_t=dev(mel_filterbank(sr, n_fft, n_mels).T),
+        chroma_fold_t=dev(chroma_fold(n_bins, bins_per_octave).T),
+        supp=dev(harmonic_suppression_matrix(n_bins, bins_per_octave)),
+        sub=dev(harmonic_subtraction_matrix(n_bins, bins_per_octave)),
+        bins_per_octave=bins_per_octave,
     )

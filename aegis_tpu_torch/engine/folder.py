@@ -7,8 +7,9 @@ the track's OWN length bucket (``core.analyze.dispatch_analyze``, which
 does not wait for the device) before any result is fetched, so track i+1's
 upload and compute overlap track i's fetch; event extraction and the MIDI
 encode then run per track on the host.  The engines are "v1" and
-"financial" with the pYIN backend; "poly", "auto" and the neural backend
-are not ported and raise NotImplementedError.
+"financial" with the pYIN backend and "poly" (chord-capable CQT salience
+peeling through ``engine.poly``, dispatched ahead the same way); "auto" and
+the neural backend are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -50,8 +51,10 @@ def transcribe_folder(
     program each (no common-length padding: a 5 s clip beside a 60 s track
     costs a 5 s upload), fetched, and extracted with the per-track
     facade's defaults: "v1" as ``AegisEngine.extract_events``'s extractor,
-    "financial" through ``AegisFinancialEngine.extract_events``, so folder
-    events equal the facades'.  Returns [(wav_path, mid_path, n_events)].
+    "financial" through ``AegisFinancialEngine.extract_events``, "poly"
+    through ``AegisPolyEngine.extract_events`` (the poly engine keeps its
+    own transport), so folder events equal the facades'.  Returns
+    [(wav_path, mid_path, n_events)].
 
     ``turbo`` is accepted for the JAX signature; the one-device path runs
     the fused program and does not tile.  ``transport`` is the upload
@@ -62,10 +65,13 @@ def transcribe_folder(
                          "(v1 | financial | poly | auto)")
     if pitch_backend not in ("pyin", "neural"):
         raise ValueError(f"unknown pitch backend: {pitch_backend!r}")
-    if engine in ("poly", "auto") or pitch_backend != "pyin":
+    if engine == "poly" and pitch_backend != "pyin":
+        raise ValueError("the polyphonic engine embeds its own pitch stack "
+                         "(no neural backend)")
+    if engine == "auto" or pitch_backend != "pyin":
         raise NotImplementedError(
-            f"engine={engine!r}, pitch_backend={pitch_backend!r}: only the v1 "
-            "and financial engines with pyin are ported")
+            f"engine={engine!r}, pitch_backend={pitch_backend!r}: only the "
+            "v1, financial and poly engines with pyin are ported")
     if transport not in ("int8", "int16", "float32"):
         raise ValueError(f"unknown transport {transport!r} "
                          "(int8 | int16 | float32)")
@@ -88,15 +94,35 @@ def transcribe_folder(
     log.info(f"Folder batch [{engine}, {device}]: {len(paths)} tracks x "
              f"{max(len(y) for y in tracks) / sample_rate:.1f}s max")
 
+    def mid_path_of(p: str) -> str:
+        return os.path.join(output_dir,
+                            os.path.splitext(os.path.basename(p))[0] + ".mid")
+
+    if engine == "poly":
+        from aegis_tpu_torch.engine.poly import (AegisPolyEngine,
+                                                 dispatch_analyze_poly,
+                                                 fetch_analyze_poly)
+
+        peng = AegisPolyEngine(sample_rate=sample_rate, device=device)
+        handles = [dispatch_analyze_poly(
+            y, sample_rate, peng.n_fft, peng.hop_length, peng.n_bins,
+            peng.bins_per_octave, peng.max_voices,
+            transport=peng.transport, device=device) for y in tracks]
+        results = []
+        for p, h in zip(paths, handles):
+            mid_path = mid_path_of(p)
+            events = peng.extract_events(fetch_analyze_poly(h),
+                                         output_mid=mid_path,
+                                         **extract_kwargs)
+            results.append((p, mid_path, len(events)))
+            log.info(f"  {os.path.basename(p)}: {len(events)} events")
+        return results
+
     handles = [dispatch_analyze(y, audio, pyin_cfg, rake_sensitivity,
                                 financial=financial, fetch_mel=False,
                                 transport=transport, device=device)
                for y in tracks]
     per_track = [fetch_analyze(h) for h in handles]
-
-    def mid_path_of(p: str) -> str:
-        return os.path.join(output_dir,
-                            os.path.splitext(os.path.basename(p))[0] + ".mid")
 
     results = []
     if financial:

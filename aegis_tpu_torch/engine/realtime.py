@@ -1,7 +1,7 @@
 """Realtime (online) transcription: feed PCM chunks, poll events live.
 
-Counterpart of the v1 and financial half of ``aegis_tpu/engine/realtime.py``:
-a stateful transcriber for LIVE input — an audio interface, a network
+Counterpart of ``aegis_tpu/engine/realtime.py``: stateful transcribers (v1,
+financial, polyphonic) for LIVE input — an audio interface, a network
 stream, a DAW bridge.  It reuses the tile machinery of ``engine/turbo.py``
 (``_tile_mel_power`` and ``_tile_analyze``: the haloed pYIN / mel / rake
 program at M = 1 slab, so every tile is one launch of each Viterbi kernel at
@@ -29,8 +29,10 @@ Phase 2.  As in the JAX package the whole-track trend stack of a financial
 stream runs on the HOST at poll time (``core/trend_fast.py``, bit-identical
 to the NumPy oracle), not through the device scans of ``core/trend.py``.
 
-The polyphonic live transcriber is not ported yet: it needs the poly stack
-(ROADMAP.md, Queue 1, item 10), and ``StreamingPolyTranscriber`` raises.
+``StreamingPolyTranscriber`` is the chord-capable sibling on the raw-voice
+poly transport (``engine.turbo.poly_tile_rows`` at M = 1): a tile is one
+upload of its two slabs and one device->host copy of its rows, and the
+voice-acceptance peak is applied on the host at poll time.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ import torch
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core.analyze import (_BOOL_ROWS, _GTR_ROWS, _V1_ROWS,
-                                          quantize_pcm16, upload)
+                                          quantize_pcm16, reflect_head,
+                                          upload)
+from aegis_tpu_torch.core.poly import unpack_poly_voices
 
 # ---------------------------------------------------------------------------
 # Finalized-event horizon: a live poll that re-runs extraction +
@@ -661,13 +665,318 @@ class StreamingTranscriber:
         return self._extract(rows)
 
 
-class StreamingPolyTranscriber:
-    """The polyphonic live transcriber of the JAX package is not ported: it
-    runs on the poly stack (CQT, voice peeling, the native recovery
-    passes), which ROADMAP.md's Queue 1 lists as item 10."""
+# --------------------------------------------------------------------------
+# Polyphonic live streaming
+# --------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "StreamingPolyTranscriber is not ported yet: it needs the poly "
-            "stack (ROADMAP.md, Queue 1, item 10); use StreamingTranscriber "
-            "(v1, or financial=True)")
+@functools.lru_cache(maxsize=8)
+def _poly_tile_program(sr: int, n_fft: int, hop: int, n_mels: int,
+                       n_bins: int, bins_per_octave: int, max_voices: int,
+                       tile: int, halo: int,
+                       device: torch.device = torch.device("cpu")):
+    """One poly tile program per (config, device): (STFT slab and RMS slab
+    as one (2, span) int16 upload, running mel ref) -> raw-voice rows
+    [bins|sals|rms|onset|cqt_f16] + updated ref (the trailing columns are
+    the f16-packed raw CQT magnitude plane feeding the host octave-recovery
+    pass, same layout as the offline packed program).
+
+    The per-tile work is engine.turbo.poly_tile_rows at M = 1 with the
+    realtime adaptations of the v1 _tile_program: the onset envelope's dB
+    reference is the RUNNING mel-power maximum, carried on the device (a
+    live source cannot see the future; the flux difference cancels the
+    reference except at the -80 dB floor), while the voice-acceptance
+    global peak is applied on the HOST at poll time over everything
+    received so far, so a finalized stream reproduces the offline fused
+    program's roll exactly."""
+    from aegis_tpu_torch.core.tables import poly_tables
+    from aegis_tpu_torch.engine.turbo import poly_tile_rows
+
+    tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, n_mels, device)
+
+    def program(slabs16: torch.Tensor, scale: float,
+                ref_power: torch.Tensor):
+        with torch.profiler.record_function("aegis.live_poly_tile"):
+            y = slabs16.to(torch.float32) * scale
+            rows, new_ref = poly_tile_rows(
+                y[0:1], y[1:2], hop, tile, halo, tables, max_voices,
+                lambda interior_max: torch.maximum(ref_power, interior_max))
+            return rows[0], new_ref
+
+    return program
+
+
+class StreamingPolyTranscriber:
+    """Online chunk-fed POLYPHONIC transcription (chords, live input).
+
+    Same feed/poll/finalize contract as StreamingTranscriber, built on the
+    raw-voice poly transport: the device ships (bins, saliences) per frame
+    and the host reconstructs the piano roll at poll time with the
+    global-so-far acceptance peak — retroactively exact, so
+    ``finalize()`` events equal the offline ``AegisPolyEngine`` pipeline
+    on the same audio (tested).  The first tile's left STFT context is the
+    track-head reflection (the offline pad convention), built once the
+    first samples arrive.  Runs on the card unless the caller names
+    ``device="cpu"``; without a card the default raises.
+    """
+
+    def __init__(self, sample_rate: int = 22050,
+                 n_fft: Optional[int] = None,
+                 hop_length: Optional[int] = None, n_bins: int = 84,
+                 bins_per_octave: int = 12, max_voices: int = 6,
+                 n_mels: int = 128,
+                 tile_frames: int = 24, halo_frames: int = 8,
+                 device="cuda", **extract_kwargs):
+        from aegis_tpu_torch.engine.poly import AegisPolyEngine
+
+        # sr-proportional window defaults, same rule as AegisPolyEngine
+        self._engine = AegisPolyEngine(sample_rate=sample_rate, n_fft=n_fft,
+                                       hop_length=hop_length, n_bins=n_bins,
+                                       bins_per_octave=bins_per_octave,
+                                       max_voices=max_voices, device=device)
+        self.device = self._engine.device
+        n_fft, hop_length = self._engine.n_fft, self._engine.hop_length
+        self.sr, self.n_fft, self.hop = sample_rate, n_fft, hop_length
+        self.n_bins, self.bpo = n_bins, bins_per_octave
+        self.max_voices, self.n_mels = max_voices, n_mels
+        self.tile, self.halo = tile_frames, halo_frames
+        self.extract_kwargs = extract_kwargs
+        self._ctx = halo_frames * hop_length + n_fft // 2
+        self._tile_samp = tile_frames * hop_length
+        self._buf = np.zeros(0, np.float32)   # raw samples, trimmed
+        self._buf_off = 0                     # absolute index of _buf[0]
+        self._tile_idx = 0
+        self._rows: List[np.ndarray] = []     # per-tile (tile, 2V+2+cqt/2)
+        self._hzn: Optional[dict] = None      # finalized-event horizon
+        self._onset_state = None              # incremental onset pick
+        self._cat = _RowCat()                 # append-only row concat
+        # running mel-power dB reference, kept on the device between tiles
+        self._ref_power = torch.zeros(1, dtype=torch.float32,
+                                      device=self.device)
+        self._n_fed = 0
+        self._finalized = False
+        self._final_analysis: Optional[Dict] = None
+
+    # ------------------------------------------------------------------ props
+
+    @property
+    def lookahead_s(self) -> float:
+        return (self._tile_samp + self._ctx) / float(self.sr)
+
+    @property
+    def frames_analyzed(self) -> int:
+        return len(self._rows) * self.tile
+
+    # ------------------------------------------------------------------ feed
+
+    def feed(self, chunk: np.ndarray) -> int:
+        """Append PCM samples; analyzes every tile whose right halo is
+        complete.  Returns the number of tiles analyzed by this call."""
+        if self._finalized:
+            raise RuntimeError("stream already finalized; feed() is no "
+                               "longer accepted")
+        chunk = np.asarray(chunk, np.float32).reshape(-1)
+        self._buf = np.concatenate([self._buf, chunk])
+        self._n_fed += len(chunk)
+        done = 0
+        while True:
+            start = self._tile_idx * self._tile_samp
+            if self._buf_off + len(self._buf) < start + self._tile_samp \
+                    + self._ctx:
+                break
+            self._run_tile(start)
+            self._tile_idx += 1
+            done += 1
+            # trim: the next tile needs samples from (its start - ctx)
+            keep_from = self._tile_idx * self._tile_samp - self._ctx
+            drop = max(keep_from - self._buf_off, 0)
+            if drop:
+                self._buf = self._buf[drop:]
+                self._buf_off += drop
+        return done
+
+    def _run_tile(self, start: int) -> None:
+        core = self._buf[start - self._buf_off:
+                         start - self._buf_off + self._tile_samp + self._ctx]
+        if self._tile_idx == 0:
+            # track-head left context: reflection for STFT frames (the
+            # offline frame_signal pad convention, via the SAME helper the
+            # offline turbo path uses), zeros for RMS frames
+            left_s = reflect_head(core, self._ctx, self.n_fft // 2)
+            left_z = np.zeros(self._ctx, np.float32)
+        else:
+            left = self._buf[start - self._ctx - self._buf_off:
+                             start - self._buf_off]
+            left_s = left_z = left
+        slab_s = np.concatenate([left_s, core])
+        slab_z = np.concatenate([left_z, core])
+        program = _poly_tile_program(self.sr, self.n_fft, self.hop,
+                                     self.n_mels, self.n_bins, self.bpo,
+                                     self.max_voices, self.tile, self.halo,
+                                     self.device)
+        s16, sc = quantize_pcm16(slab_s)
+        # same int16 grid for both slabs (left pads are zeros or copies of
+        # the same samples, so one scale covers both exactly)
+        z16 = np.round(slab_z / sc).astype(np.int16) if sc else \
+            np.zeros_like(slab_z, np.int16)
+        # one upload for the two slabs, one device->host copy for the rows;
+        # the reference stays on the device
+        rows, self._ref_power = program(
+            upload(np.stack([s16, z16]), self.device),
+            float(np.float32(sc)), self._ref_power)
+        self._rows.append(rows.cpu().numpy())
+
+    # ------------------------------------------------------------------ read
+
+    def _analysis(self, n_frames: Optional[int] = None) -> Optional[Dict]:
+        if not self._rows:
+            return None
+        buf = self._cat.view(self._rows)
+        if n_frames is not None:
+            buf = buf[:n_frames]
+        out = unpack_poly_voices(buf, self.max_voices, self.bpo)
+        out["onset_env"][0] = 0.0  # first-frame convention (lag pad)
+        return out
+
+    def _poll_full(self) -> List[dict]:
+        """Cache-free poll (the horizon's equality reference; tests)."""
+        analysis = self._analysis()
+        if analysis is None:
+            return []
+        return self._engine.extract_events(analysis, **self.extract_kwargs)
+
+    def poll_events(self) -> List[dict]:
+        """Events over everything analyzed so far (live view).  After
+        finalize(), polls serve the finalized analysis.
+
+        Poll cost is bounded by the finalized-event horizon (module
+        header): events behind a validated freeze cut are cached, only
+        the active tail re-runs segmentation + the recovery chain, and
+        the track-global scalars every pass reads (salience acceptance
+        peak, RMS silence reference, raw-CQT peak, picked onsets) are
+        computed over the full history and passed in as overrides — a
+        fingerprint change (a new loudest attack) invalidates the cache.
+        Equality with the cache-free poll is pinned by
+        tests/test_torch_realtime.py."""
+        if self._finalized:
+            if self._final_analysis is None:
+                return []
+            return self._engine.extract_events(self._final_analysis,
+                                               **self.extract_kwargs)
+        if not self._rows:
+            return []
+        kw = self.extract_kwargs
+        if not kw.get("use_onsets", True):
+            return self._poll_full()
+        from aegis_tpu_torch.core.cqt import pick_onsets_incremental
+        from aegis_tpu_torch.ref.dsp_ref import amplitude_to_db
+
+        buf = self._cat.view(self._rows)
+        V = self.max_voices
+        T = buf.shape[0]
+        # track-global scalars, computed exactly as the full extraction
+        # derives them (same dtypes and elementwise ops)
+        sal_peak = float(np.max(buf[:, V:2 * V].astype(np.float32)))
+        rms_raw = buf[:, 2 * V].astype(np.float64)
+        rms_db = amplitude_to_db(rms_raw)
+        rms_ref = float(np.max(rms_raw))
+        rms_peak_db = float(np.max(rms_db))
+        env = buf[:, 2 * V + 1].astype(np.float64)
+        env[0] = 0.0  # first-tile halo convention (_analysis)
+        onsets, self._onset_state = pick_onsets_incremental(
+            env, self.sr, self.hop, self._onset_state)
+        plane = np.ascontiguousarray(buf[:, 2 * V + 2:])
+        mag_max = np.float32(plane.view(np.float16).max())
+        track_peak_db = float(np.max(
+            20.0 * np.log10(np.maximum(
+                np.array([mag_max], np.float32), 1e-12))))
+        # rms_ref (the RAW rms max) is the dB reference — rms_peak_db is
+        # identically 0 under self-referencing, so the raw max is what
+        # actually detects a new loudest frame
+        fp = (sal_peak, rms_ref, track_peak_db)
+        live = rms_db >= (rms_peak_db - kw.get("silence_db", 45.0))
+        fps = self.sr / self.hop
+        gap = int(kw.get("sustain_ms", 120.0) / 1000.0 * fps)
+        qa = max(gap, int(kw.get("snap_back_ms", 200.0) / 1000.0 * fps),
+                 _HZN_QUIET) + 2
+        if 2 * qa > _HZN_PRE:
+            # pathological kwargs (huge merge/snap windows): the margins
+            # no longer cover them — serve the cache-free path
+            return self._poll_full()
+
+        over = dict(kw)
+        over.update(rms_peak_db=rms_peak_db, track_peak_db=track_peak_db,
+                    rms_ref=rms_ref, rms_floor_db=rms_peak_db - 80.0)
+        c = self._hzn
+        events = None
+        # poly activation for the cut test = the silence-gated roll over
+        # whatever window was unpacked (the tail always covers the scan
+        # range, which sits above the previous cut)
+        roll_g, roll_off = None, 0
+        if (c is not None and T >= c["T"] and fp == c["fp"]
+                and np.array_equal(onsets[onsets < c["cut"]],
+                                   c["onsets_pre"])):
+            R = max(c["cut"] - _HZN_PRE, 0)
+            tail = unpack_poly_voices(buf[R:], V, self.bpo,
+                                      global_peak=sal_peak)
+            if R == 0:
+                tail["onset_env"][0] = 0.0
+            roll_g = np.asarray(tail["roll"], bool) & live[R:, None]
+            roll_off = R
+            t_ev = self._engine.extract_events(tail, onsets=onsets - R,
+                                               **over)
+            t_ev = [e for e in _shift_events(t_ev, R)
+                    if e["start"] >= c["cut"]]
+            events = c["frozen"] + t_ev
+        if events is None:
+            self._hzn = c = None
+            analysis = unpack_poly_voices(buf, V, self.bpo,
+                                          global_peak=sal_peak)
+            analysis["onset_env"][0] = 0.0
+            roll_g = np.asarray(analysis["roll"], bool) & live[:, None]
+            events = self._engine.extract_events(analysis, onsets=onsets,
+                                                 **over)
+        hi = T - _HZN_K
+        lo = c["cut"] if c is not None else 0
+        span_cross = _span_cross_fn(events)
+
+        def _poly_cross(b):
+            # a final event spans b, or some note's gated-roll run could
+            # merge across b (same-note activity within the sustain gap
+            # on both sides)
+            if span_cross(b):
+                return True
+            i = b - roll_off
+            left = roll_g[max(i - gap - 1, 0):i]
+            right = roll_g[i:i + gap + 1]
+            return bool((left.any(axis=0) & right.any(axis=0)).any())
+
+        cut = _find_cut(onsets, lo=max(hi - 1024, lo), hi=hi, quiet=0,
+                        cross_fn=_poly_cross,
+                        event_starts=[e["start"] for e in events])
+        if cut is not None and (c is None or cut >= c["cut"]):
+            self._hzn = {"T": T, "cut": cut, "fp": fp,
+                         "frozen": [dict(e) for e in events
+                                    if e["end"] < cut],
+                         "onsets_pre": onsets[onsets < cut]}
+        return [dict(e) for e in events]
+
+    def finalize(self, output_mid=None, **kwargs) -> List[dict]:
+        """Flush the buffered tail (silence padding, the offline trailing
+        convention) and return the final event list — identical to the
+        offline AegisPolyEngine events on the same audio.  Idempotent:
+        repeat calls re-extract from the finalized analysis."""
+        if not self._finalized:
+            true_frames = 1 + self._n_fed // self.hop
+            remaining = true_frames - self.frames_analyzed
+            if remaining > 0:
+                need_tiles = -(-remaining // self.tile)
+                pad = need_tiles * self._tile_samp + 2 * self._ctx
+                self.feed(np.zeros(pad, np.float32))
+                self._n_fed -= pad  # padding is not audio
+            self._final_analysis = self._analysis(true_frames)
+            self._finalized = True
+        if self._final_analysis is None:
+            return []
+        return self._engine.extract_events(
+            self._final_analysis, output_mid,
+            **{**self.extract_kwargs, **kwargs})

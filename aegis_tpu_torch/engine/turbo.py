@@ -1,6 +1,7 @@
 """Turbo: tiled execution for long audio and track batches (PyTorch).
 
-Counterpart of the v1 and financial parts of ``aegis_tpu/engine/turbo.py``.
+Counterpart of ``aegis_tpu/engine/turbo.py``: the v1 and financial tiled,
+batch and streamed programs and the tiled polyphonic program.
 The JAX package runs a ``shard_map`` over a (data, time) device mesh; on
 one GPU both mesh axes are batch dimensions of ONE program over
 (B tracks, n_tiles tiles):
@@ -372,6 +373,160 @@ def run_analyze_batch(
     # convention onset_env[0] == 0
     result["onset_env"][:, 0] = 0.0
     return result
+
+
+# --------------------------------------------------------------------------
+# Tiled polyphonic program (CQT salience peeling over (tracks, tiles))
+# --------------------------------------------------------------------------
+
+def poly_tile_rows(slab_s: torch.Tensor, slab_z: torch.Tensor, hop: int,
+                   tile: int, halo: int, tables, max_voices: int,
+                   ref_power):
+    """The per-tile polyphonic work on M haloed slabs (M, span): STFT power
+    ONCE for the CQT and the mel projection, RMS, the peel, the onset flux
+    on the haloed tile (seam-exact for any halo >= 1 frame), cropped to the
+    tile interiors.
+
+    ``slab_s`` feeds the STFT frames and ``slab_z`` the RMS frames: they
+    differ only where a slab's left context is the head of the track
+    (reflection for the STFT, the ``frame_signal`` pad; zeros for the RMS).
+    ``ref_power`` maps the (M,) interior mel-power maxima to the (M,) dB
+    reference of the onset envelope.  Returns (packed rows (M, tile, C) in
+    the layout of core.poly.pack_poly_rows, the dB reference (M,))."""
+    from aegis_tpu_torch.core.poly import pack_poly_rows, peel_voices
+
+    n_fft = tables.window.shape[0]
+    t2 = tile + 2 * halo
+    sl = slice(halo, halo + tile)
+    fr = _frame_slab(slab_s, t2, hop, n_fft, 0) * tables.window
+    re = fr @ tables.dft_cos
+    im = fr @ tables.dft_sin
+    power = re * re + im * im
+    cqt_p = (power @ tables.cqt_fb_t)[:, sl]
+    mel_p = power @ tables.mel_fb_t
+    frz = _frame_slab(slab_z, t2, hop, n_fft, 0)[:, sl]
+    rms_ = torch.sqrt(torch.mean(frz * frz, dim=-1))
+    # the peel is frame-local: peeling the interiors alone is exact
+    bins_v, sals_v = peel_voices(cqt_p, tables.supp, tables.sub, max_voices)
+
+    ref = ref_power(torch.amax(mel_p[:, sl], dim=(1, 2)))
+    amin = 1e-10
+    mel_db = (10.0 * torch.log10(torch.clamp_min(mel_p, amin))
+              - 10.0 * torch.log10(torch.clamp_min(ref, amin))[:, None, None])
+    mel_db = torch.clamp_min(mel_db, -80.0)
+    onset = onset_from_db(mel_db)[:, sl]
+    return pack_poly_rows(bins_v, sals_v, rms_, onset, cqt_p), ref
+
+
+def analyze_poly_sharded(
+    y16: torch.Tensor,     # (B, n_tiles*tile*hop) int16 PCM
+    scale: torch.Tensor,   # (B,) dequant scales
+    edge16: torch.Tensor,  # (B, 2*ctx) int16 track-edge context: the host's
+                           # reflect padding on the left (STFT pad_mode),
+                           # zeros on the right (past the padded tail)
+    hop: int, max_voices: int, tables, n_tiles: int, tile: int, halo: int,
+) -> torch.Tensor:
+    """The polyphonic Perception Phase (core.poly.analyze_poly_program) of B
+    tracks as ONE batched program over (tracks, tiles).
+
+    Per-frame work (CQT projection, harmonic peeling, RMS, onset flux) is
+    local to a haloed tile.  The JAX package exchanges halos between
+    devices; here a tile's halos are overlapping windows of the track
+    padded by the halo context, once for each of the two edge conventions:
+    the STFT slabs have the reflected head on the left of tile 0, the RMS
+    slabs zeros; both have zeros past the right end.  The only cross-tile
+    state is one per-track scalar, the mel-power dB reference of the onset
+    envelope: a max over ONE track's tile interiors, never across the
+    batch.  Returns ONE packed (B, n_tiles, tile, 2*max_voices + 2 +
+    ceil(n_bins/2)) buffer of raw voices plus the f16-packed raw CQT
+    magnitude plane; the host reconstructs the roll / confidence /
+    salience planes through the NumPy oracle with the track-global
+    acceptance peak (max over the shipped saliences)."""
+    from aegis_tpu_torch.core.poly import cqt_plane_cols
+
+    n_fft = tables.window.shape[0]
+    span = _slab_span(tile, halo, hop, n_fft)
+    ctx = halo * hop + n_fft // 2
+    b = y16.shape[0]
+    y_f = y16.to(torch.float32) * scale[:, None]
+    e_l = edge16[:, :ctx].to(torch.float32) * scale[:, None]
+    e_r = edge16[:, ctx:].to(torch.float32) * scale[:, None]
+    zero = torch.zeros_like(e_l)
+
+    def slabs(left, right):
+        y_ext = torch.cat([left, y_f, right], dim=1)
+        return y_ext.unfold(1, span, tile * hop)[:, :n_tiles]
+
+    slab_s = slabs(e_l, e_r).reshape(b * n_tiles, span)
+    slab_z = slabs(zero, zero).reshape(b * n_tiles, span)
+
+    def track_ref(interior_max):  # (B*n_tiles,) -> each track's own max
+        gmax = torch.amax(interior_max.reshape(b, n_tiles), dim=1)
+        return torch.repeat_interleave(gmax, n_tiles)
+
+    packed, _ = poly_tile_rows(slab_s, slab_z, hop, tile, halo, tables,
+                               max_voices, track_ref)
+    n_bins = tables.cqt_fb_t.shape[1]
+    assert packed.shape[-1] == 2 * max_voices + 2 + cqt_plane_cols(n_bins)
+    return packed.reshape((b, n_tiles) + packed.shape[1:])
+
+
+def run_analyze_poly_turbo(
+    ys: np.ndarray,  # (n_samples,) one track or (B, n_samples) equal-length
+    sr: int = 22050,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    n_bins: int = 84,
+    bins_per_octave: int = 12,
+    max_voices: int = 6,
+    n_mels: int = 128,
+    turbo: Optional[TurboConfig] = None,
+    device="cuda",
+) -> Dict[str, np.ndarray]:
+    """Tiled polyphonic analyze: tile every track and stitch the tile
+    interiors.  Output schema matches AegisPolyEngine.analyze: {roll,
+    confidence, salience, rms, onset_env, cqt_mag}, batched along axis 0
+    when ``ys`` is 2-D."""
+    from aegis_tpu_torch.core.analyze import reflect_head
+    from aegis_tpu_torch.core.poly import unpack_poly_voices
+    from aegis_tpu_torch.core.tables import poly_tables
+
+    device = resolve_device(device)
+    single = ys.ndim == 1
+    ys2 = np.asarray(ys, np.float32)[None] if single else np.asarray(
+        ys, np.float32)
+    turbo = turbo or TurboConfig()
+    tile, halo = turbo.tile_frames, turbo.halo_frames
+    ctx = halo * hop_length + n_fft // 2
+    true_frames = 1 + ys2.shape[1] // hop_length
+    n_tiles = max(1, -(-true_frames // tile))
+    n_samp = n_tiles * tile * hop_length
+
+    y16, scale = quantize_tracks(ys2, n_samp)
+    # left context = the track's reflect padding (same int16 samples, so the
+    # dequantized slab equals frame_signal's reflect pad exactly); shared
+    # helper with the live poly transcriber (core.analyze.reflect_head)
+    edge = np.zeros((len(ys2), 2 * ctx), np.int16)
+    edge[:, :ctx] = reflect_head(y16, ctx, n_fft // 2,
+                                 true_len=ys2.shape[1])
+
+    tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, n_mels, device)
+    with torch.profiler.record_function("aegis.poly_program"):
+        packed = analyze_poly_sharded(
+            upload(y16, device), upload(scale, device), upload(edge, device),
+            hop_length, max_voices, tables, n_tiles, tile, halo)
+    buf = packed.cpu().numpy()
+    buf = buf.reshape(buf.shape[0], -1, buf.shape[-1])[:, :true_frames]
+    # per-track plane reconstruction through the oracle; the acceptance
+    # peak is per-track (max over that track's shipped saliences), matching
+    # the fused single-track program exactly
+    tracks = [unpack_poly_voices(buf[i], max_voices, bins_per_octave)
+              for i in range(buf.shape[0])]
+    out = {k: np.stack([t[k] for t in tracks]) for k in tracks[0]}
+    out["onset_env"][:, 0] = 0.0  # first-frame convention (lag pad)
+    if single:
+        out = {k: v[0] for k, v in out.items()}
+    return out
 
 
 # --------------------------------------------------------------------------

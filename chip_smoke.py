@@ -6,8 +6,8 @@
 Drives the port's main paths, the v1 WAV -> MIDI transcription
 (``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), the
 financial (v2) engine, the tiled, streamed and folder-batch modes, the
-live transcribers and the CUDA kernels, in thirteen phases; each raises on
-failure:
+live transcribers, the CUDA kernels and the polyphonic stack, in eighteen
+phases; each raises on failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -77,6 +77,35 @@ failure:
                a tile (torch.profiler over eight tiles); the kernels at the
                live shapes against their plain versions and the one-CTA
                variant, with bound and serial floor.
+ 14. poly parts — the polyphonic device half on the card, at 22 050 and
+               44 100 Hz on the CQT of a chord clip: the voice peel against
+               its NumPy oracle (picks equal on >= 0.999 of entries,
+               saliences rtol 5e-4), the f16 plane packing against its host
+               twin byte for byte, the packed program against the same
+               program on the CPU.
+ 15. poly    — AegisPolyEngine on the card: chord progressions of seeds 1,
+               3, 7 at 22 050 Hz and 7, 8, 10 at 44 100 Hz, truth F1 >= 0.99
+               and F1 >= 0.99 against the CPU engine (prints whether the
+               events are equal); then a 60 s chord track at each rate and a
+               10-minute one at 22 050 Hz, which "auto" sends to the tiles:
+               fused against tiles F1 >= 0.99, truth F1 at the JAX engine's
+               own on the same track (JAX_CPU_TRUTH_F1).
+ 16. poly folder — transcribe_folder(engine="poly") over four 60 s chord
+               WAVs: MIDI bytes equal to the facade's; no synchronizing call
+               in dispatch_analyze_poly (torch's sync debug mode).
+ 17. poly live — StreamingPolyTranscriber at tile 24 / halo 8 on the three
+               chord tracks, 0.5 s chunks, polled every 2 s: the first,
+               middle and last poll equal to _poll_full(), finalize() F1 >=
+               0.99 against the offline engine on the card (prints whether
+               note, start and end are equal).
+ 18. times   — of the polyphonic paths, beside the card's name and power
+               limit, warm medians of 5: analyze and audio_to_midi fused and
+               tiled at 60 s (both rates) and 10 minutes, the device program
+               apart from the host extraction, the folder, each live
+               session's tile ms, ingest margin, poll and finalize ms; a
+               torch.profiler pass over one fused 60 s analyze.
+               The polyphonic paths run no pYIN: phases 15-17 fail if either
+               Viterbi kernel is launched in them.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -104,24 +133,32 @@ import torch
 
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
+from aegis_tpu_torch.core import cqt as tcqt
+from aegis_tpu_torch.core import poly as tpoly
 from aegis_tpu_torch.core import pyin as tpyin
 from aegis_tpu_torch.core import pyin_cuda
 from aegis_tpu_torch.core.analyze import (dequant_transport, dispatch_analyze,
                                           fetch_analyze, pad_to_bucket,
                                           quantize_pcm8)
 from aegis_tpu_torch.core.events import extract_events_v1
-from aegis_tpu_torch.core.tables import tables_from_numpy
+from aegis_tpu_torch.core.tables import poly_tables, tables_from_numpy
 from aegis_tpu_torch.engine import turbo as tturbo
 from aegis_tpu_torch.engine.engine import AegisEngine
 from aegis_tpu_torch.engine.financial import AegisFinancialEngine
 from aegis_tpu_torch.engine.folder import transcribe_folder
-from aegis_tpu_torch.engine.realtime import StreamingTranscriber
+from aegis_tpu_torch.engine.poly import (AegisPolyEngine,
+                                         dispatch_analyze_poly,
+                                         fetch_analyze_poly)
+from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
+                                             StreamingTranscriber)
 from aegis_tpu_torch.io import write_wav
 from aegis_tpu_torch.midi import midi_to_notes
+from aegis_tpu_torch.ref.poly_ref import peel_voices_ref
 from aegis_tpu_torch.tools.bench_viterbi import (band_and_table, cuda_ms,
                                                  forward_variant,
                                                  synthetic_inputs)
 from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
+                                              generate_chord_progression,
                                               generate_test_track)
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
 
@@ -791,13 +828,17 @@ def live_transcriber(dev, sr: int, tile: int, halo: int, financial: bool):
 
 
 def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
-                 chunk_s: float = 0.5, poll_s: float = 2.0):
+                 chunk_s: float = 0.5, poll_s: float = 2.0, rt=None):
     """One live session on the card: ``y`` fed in chunks, polled every
     ``poll_s`` of audio (and after every chunk until the first note shows),
     finalized.  Returns (final events, stats); raises when a kernel was not
     launched exactly once a tile at B = 1 or a sampled poll differs from
-    the cache-free one."""
-    rt = live_transcriber(dev, sr, tile, halo, financial)
+    the cache-free one.  ``rt`` is a ready StreamingPolyTranscriber: its
+    tiles run no pYIN, so they must launch neither kernel."""
+    poly = rt is not None
+    hop = rt.hop if poly else HOP
+    if rt is None:
+        rt = live_transcriber(dev, sr, tile, halo, financial)
     chunk = int(chunk_s * sr)
     n_polls = int(len(y) / sr / poll_s)
     sampled = {0, n_polls // 2, n_polls - 1}
@@ -819,7 +860,7 @@ def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
         dt = time.perf_counter() - t0
         if events and first_event is None:
             # audio fed when a poll first shows a note, less its onset
-            first_event = fed_s - min(e["start"] for e in events) * HOP / sr
+            first_event = fed_s - min(e["start"] for e in events) * hop / sr
         if due:
             next_poll += poll_s
             poll_ms.append(1e3 * dt)
@@ -835,8 +876,10 @@ def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
     torch.cuda.synchronize()
     counts = dict(pyin_cuda.LAUNCHES)
     tiles = len(rt._rows)
+    per_tile = 0 if poly else 1
     for k in counts:
-        if counts[k] != tiles or pyin_cuda.SEQUENCES[k] != tiles:
+        if (counts[k] != per_tile * tiles
+                or pyin_cuda.SEQUENCES[k] != per_tile * tiles):
             raise AssertionError(
                 f"live: {k} launched {counts[k]} times with "
                 f"{pyin_cuda.SEQUENCES[k]} sequences over {tiles} tiles")
@@ -846,7 +889,8 @@ def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
     warm = sorted(tile_ms[1:])
     stats = {
         "sr": sr, "tile": tile, "halo": halo, "audio_s": len(y) / sr,
-        "engine": "financial" if financial else "v1", "tiles": tiles,
+        "engine": "poly" if poly else "financial" if financial else "v1",
+        "tiles": tiles,
         "launches": counts, "lookahead_s": rt.lookahead_s,
         "tile_wall_ms_median": warm[len(warm) // 2],
         "tile_wall_ms_p95": warm[int(0.95 * (len(warm) - 1))],
@@ -921,48 +965,72 @@ def phase_live(dev, tracks, y10, truth10, total: dict, per_call: dict) -> list:
     return all_stats
 
 
+def profile_kernels(fn, n: int = 1):
+    """torch.profiler over ``n`` runs of fn() -> ({kernel name: [device us,
+    launches]} summed over the n runs, host ms a run under the profiler).
+    One more run comes first inside the profiler and is left out by its time
+    stamps: a tracing session may lose its first few dozen device events."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("aegis.profiled_runs"):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / n
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    mark = next(e for e in events if e.name == "aegis.profiled_runs"
+                and e.device_type != cuda)
+    kernels: dict = {}
+    for e in events:
+        if (e.device_type == cuda and not e.name.startswith("aegis.")
+                and e.time_range.start >= mark.time_range.start):
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    return kernels, host_ms
+
+
 def live_profile(dev, y, sr: int, tile: int, halo: int, financial: bool,
-                 tile_wall_ms: float, n: int = 8) -> dict:
+                 tile_wall_ms: float, n: int = 8, rt=None) -> dict:
     """Device-busy ms and launches a tile: torch.profiler over ``n`` warm
     tiles, each fed as exactly one tile's samples.  The idle share is taken
     against ``tile_wall_ms``, the session's median without the profiler
     (tracing every launch several times over slows the host)."""
-    rt = live_transcriber(dev, sr, tile, halo, financial)
-    tile_samp = tile * HOP
+    poly = rt is not None
+    if rt is None:
+        rt = live_transcriber(dev, sr, tile, halo, financial)
+    tile_samp = rt._tile_samp
     pos = rt._ctx + 4 * tile_samp
     rt.feed(y[:pos])
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            if rt.feed(y[pos:pos + tile_samp]) != 1:
-                raise AssertionError("live profile: a feed of one tile's "
-                                     "samples did not run one tile")
-            pos += tile_samp
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / n
 
-    def dev_us(a):
-        return getattr(a, "self_device_time_total",
-                       getattr(a, "self_cuda_time_total", 0.0))
+    def one_tile():
+        nonlocal pos
+        if rt.feed(y[pos:pos + tile_samp]) != 1:
+            raise AssertionError("live profile: a feed of one tile's "
+                                 "samples did not run one tile")
+        pos += tile_samp
 
-    kernels = [a for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA
-               and not a.key.startswith("aegis.")]
-    busy_ms = sum(dev_us(a) for a in kernels) / 1000.0 / n
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    kernels, wall_ms = profile_kernels(one_tile, n)
+    busy_ms = sum(us for us, _ in kernels.values()) / 1000.0 / n
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     return {"phase": "profile", "what": "live_tile", "sr": sr, "tile": tile,
-            "halo": halo, "engine": "financial" if financial else "v1",
+            "halo": halo,
+            "engine": "poly" if poly else "financial" if financial else "v1",
             "tiles_profiled": n, "wall_ms_a_tile_profiled": wall_ms,
             "device_busy_ms_a_tile": busy_ms,
-            "kernel_launches_a_tile": sum(a.count for a in kernels) / n,
+            "kernel_launches_a_tile":
+                sum(c for _, c in kernels.values()) / n,
             "tile_wall_ms_median_of_the_session": tile_wall_ms,
             "idle_share": 1.0 - busy_ms / tile_wall_ms,
             "top_device_kernels_ms_a_tile": [
-                [a.key[:70], dev_us(a) / 1000.0 / n, a.count / n]
-                for a in top],
+                [name[:70], us / 1000.0 / n, c / n]
+                for name, (us, c) in top],
             "card": CARD["nvidia_smi"]}
 
 
@@ -993,6 +1061,316 @@ def phase_times_live(dev, tracks, live_shapes, all_stats) -> dict:
               "picked_variant": list(picked), "median_ms": row,
               "card": CARD["nvidia_smi"]})
     return kernel_ms
+
+
+# --------------------------------------------------------------------------
+# The polyphonic stack (no hand kernel: the poly paths are pYIN-free)
+# --------------------------------------------------------------------------
+
+def chord_track(seconds: float, sr: int, first_seed: int = 1):
+    """A chord track of ``seconds``: chord progressions of successive seeds
+    (tools.signal_gen.generate_chord_progression, 4.8 s each) joined, the
+    truth of each shifted to its place; cut at ``seconds``, truth notes that
+    start in the last quarter second dropped and the others' ends clipped."""
+    n = int(round(seconds * sr))
+    pieces, truth, pos, seed = [], [], 0, first_seed
+    while pos < n:
+        y, tr = generate_chord_progression(seed, sr)
+        truth += [{"note": e["note"], "start": e["start"] + pos / sr,
+                   "end": e["end"] + pos / sr} for e in tr]
+        pieces.append(y)
+        pos += len(y)
+        seed += 1
+    end = n / sr
+    truth = [dict(e, end=min(e["end"], end)) for e in truth
+             if e["start"] < end - 0.25]
+    return np.concatenate(pieces)[:n], truth
+
+
+# Truth F1 of the JAX package's AegisPolyEngine on the CPU (JAX_PLATFORMS=cpu)
+# on the very tracks chord_track makes: analyze + extract_events with the
+# engine's defaults (the 10-minute track with turbo_mode="auto", which sends
+# it to the tiles, on a one-device mesh), scored by note_event_f1 against the
+# joined truth.  The port on the card is gated at these less POLY_TRUTH_SLACK
+# (one or two notes of a track may sit on a decision edge that the card's
+# matmul order moves).
+JAX_CPU_TRUTH_F1 = {("chord60", 22050): 1.0,                   # 152 of 152
+                    ("chord60", 44100): 0.9868421052631579,    # 150 of 152
+                    ("chord600", 22050): 0.9833776595744681}   # 1479 of 1500
+POLY_TRUTH_SLACK = 0.01
+POLY_GATING_SEEDS = ((22050, (1, 3, 7)), (44100, (7, 8, 10)))
+
+
+def poly_window(sr: int):
+    scale = max(1, round(sr / 22050))
+    return 2048 * scale, 512 * scale
+
+
+def note_tuples(events):
+    return [(e["note"], e["start"], e["end"]) for e in events]
+
+
+def viterbi_launches_zero(what: str) -> None:
+    if any(pyin_cuda.LAUNCHES.values()):
+        raise AssertionError(f"{what}: a poly path launched a Viterbi kernel "
+                             f"{dict(pyin_cuda.LAUNCHES)}")
+
+
+def phase_poly_parts(dev) -> None:
+    """The device half on the card: the peel against the NumPy oracle on the
+    CQT of a chord clip, the f16 packing against its host twin, the packed
+    program against the same program on the CPU."""
+    cpu = torch.device("cpu")
+    for sr in (22050, 44100):
+        n_fft, hop = poly_window(sr)
+        y = generate_chord_progression(7, sr)[0]
+        tb = poly_tables(sr, n_fft, 84, 12, 128, dev)
+        power = tcqt.pseudo_cqt_t(torch.from_numpy(y).to(dev), hop, tb)
+        bins, sals = tpoly.peel_voices(power, tb.supp, tb.sub)
+        b_r, s_r = peel_voices_ref(power.cpu().numpy(), tb.supp.cpu().numpy(),
+                                   tb.sub.cpu().numpy())
+        bins, sals = bins.cpu().numpy(), sals.cpu().numpy()
+        agree = float(np.mean(bins == b_r))
+        same = (bins == b_r).all(axis=1)
+        sal_ok = bool(np.allclose(sals[same], s_r[same], rtol=5e-4, atol=1e-4))
+        first_diff = (int(np.argmin(same)) if not same.all() else None)
+
+        mag = torch.sqrt(torch.clamp_min(power, 0.0))
+        packed = tpoly.pack_cqt_f16(mag).cpu().numpy()
+        twin = mag.cpu().numpy().astype(np.float16)
+        bytes_ok = packed.tobytes() == twin.tobytes()
+        back_ok = bool(np.array_equal(tpoly.unpack_cqt_f16(packed, 84),
+                                      twin.astype(np.float32)))
+
+        bufs = [fetch_packed(dispatch_analyze_poly(
+            y, sr, n_fft, hop, device=d)) for d in (dev, cpu)]
+        V = 6
+        prog_bins = float(np.mean(bufs[0][:, :V] == bufs[1][:, :V]))
+        rows = (bufs[0][:, :V] == bufs[1][:, :V]).all(axis=1)
+        prog_ok = bool(
+            np.allclose(bufs[0][rows, V:2 * V], bufs[1][rows, V:2 * V],
+                        rtol=5e-4, atol=1e-4)
+            and np.allclose(bufs[0][:, 2 * V], bufs[1][:, 2 * V], atol=1e-6)
+            and np.allclose(bufs[0][:, 2 * V + 1], bufs[1][:, 2 * V + 1],
+                            atol=2e-3)
+            and np.allclose(tpoly.unpack_cqt_f16(bufs[0][:, 2 * V + 2:], 84),
+                            tpoly.unpack_cqt_f16(bufs[1][:, 2 * V + 2:], 84),
+                            rtol=2e-3, atol=1e-4))
+        emit({"phase": "poly_parts", "sr": sr, "frames": int(bins.shape[0]),
+              "peel_pick_agreement_vs_oracle": agree,
+              "peel_first_differing_frame": first_diff,
+              "peel_saliences_within_rtol_5e-4": sal_ok,
+              "pack_bytes_equal_host_twin": bytes_ok,
+              "unpack_roundtrip": back_ok,
+              "packed_program_bins_agreement_vs_cpu": prog_bins,
+              "packed_program_rows_within_tolerance": prog_ok})
+        if agree < 0.999 or not sal_ok:
+            raise AssertionError(f"poly_parts {sr}: peel differs from the "
+                                 f"oracle (picks {agree})")
+        if not (bytes_ok and back_ok):
+            raise AssertionError(f"poly_parts {sr}: pack_cqt_f16 differs from "
+                                 "its host twin")
+        if prog_bins < 0.999 or not prog_ok:
+            raise AssertionError(f"poly_parts {sr}: the packed program on the "
+                                 "card differs from the CPU's")
+
+
+def fetch_packed(handle) -> np.ndarray:
+    buf, true_frames = handle[0], handle[1]
+    return buf[:true_frames].cpu().numpy()
+
+
+def poly_f1(eng, ref_events, events) -> float:
+    return f1_of(events_to_seconds(ref_events, eng.sr, eng.hop_length),
+                 events_to_seconds(events, eng.sr, eng.hop_length))
+
+
+def phase_poly(dev, chord_tracks) -> None:
+    """The truth gate on the six gating seeds, card against CPU; then the
+    60 s chord tracks at both rates and the 10-minute one: fused against
+    tiles, truth F1 against the JAX engine's on the CPU."""
+    reset_counts()
+    for sr, seeds in POLY_GATING_SEEDS:
+        eng = AegisPolyEngine(sample_rate=sr, device=dev)
+        cpu = AegisPolyEngine(sample_rate=sr, device="cpu")
+        for seed in seeds:
+            y, truth = generate_chord_progression(seed, sr)
+            buf = io.BytesIO()
+            analysis = eng.analyze(y)
+            events = eng.extract_events(analysis, buf)
+            ev_cpu = cpu.extract_events(cpu.analyze(y))
+            T = 1 + len(y) // eng.hop_length
+            if (analysis["roll"].shape != (T, 128)
+                    or analysis["cqt_mag"].shape != (T, 84)
+                    or not np.isfinite(analysis["rms"]).all()
+                    or not buf.getvalue().startswith(b"MThd")):
+                raise AssertionError(f"poly seed {seed} @ {sr}: bad analysis "
+                                     "or no MIDI")
+            row = {"phase": "poly", "clip": f"chord_progression_s{seed}",
+                   "sr": sr, "events": len(events),
+                   "truth_notes": len(truth),
+                   "truth_f1": f1_of(truth, events_to_seconds(
+                       events, sr, eng.hop_length)),
+                   "f1_vs_cpu": poly_f1(eng, ev_cpu, events),
+                   "notes_equal_cpu": note_tuples(events) == note_tuples(ev_cpu),
+                   "events_equal_cpu": events == ev_cpu}
+            emit(row)
+            if min(row["truth_f1"], row["f1_vs_cpu"]) < 0.99:
+                raise AssertionError(f"poly seed {seed} @ {sr}: {row}")
+
+    for (name, sr), (y, truth) in chord_tracks.items():
+        eng = AegisPolyEngine(sample_rate=sr, device=dev)
+        fused = eng.extract_events(eng.analyze(y))
+        tiles = eng.extract_events(eng.analyze(y, turbo_mode="tiles"))
+        auto = eng.extract_events(eng.analyze(y, turbo_mode="auto"))
+        want_auto = tiles if len(y) / sr > 240.0 else fused
+        row = {"phase": "poly", "clip": name, "sr": sr,
+               "seconds": len(y) / sr, "truth_notes": len(truth),
+               "fused_events": len(fused), "tiles_events": len(tiles),
+               "tiles_f1_vs_fused": poly_f1(eng, fused, tiles),
+               "auto_is": "tiles" if want_auto is tiles else "fused",
+               "auto_equals_that_path": note_tuples(auto) == note_tuples(want_auto),
+               "fused_truth_f1": f1_of(truth, events_to_seconds(
+                   fused, sr, eng.hop_length)),
+               "tiles_truth_f1": f1_of(truth, events_to_seconds(
+                   tiles, sr, eng.hop_length)),
+               "jax_cpu_truth_f1": JAX_CPU_TRUTH_F1[(name, sr)],
+               "card": CARD["nvidia_smi"]}
+        emit(row)
+        gate = JAX_CPU_TRUTH_F1[(name, sr)] - POLY_TRUTH_SLACK
+        if row["tiles_f1_vs_fused"] < 0.99 or not row["auto_equals_that_path"]:
+            raise AssertionError(f"poly {name} @ {sr}: tiles against fused "
+                                 f"{row}")
+        if min(row["fused_truth_f1"], row["tiles_truth_f1"]) < gate:
+            raise AssertionError(f"poly {name} @ {sr}: truth F1 below the JAX "
+                                 f"engine's {gate}: {row}")
+    viterbi_launches_zero("poly")
+
+
+def phase_poly_folder(dev, folder: str, ys: list) -> None:
+    """Four 60 s chord WAVs through the folder sweep: MIDI bytes equal to
+    the facade's, and the dispatch half queues every track without a
+    synchronizing call."""
+    reset_counts()
+    out_dir = os.path.join(folder, "mid_poly")
+    results = transcribe_folder(folder, out_dir, engine="poly", device=dev)
+    eng = AegisPolyEngine(sample_rate=22050, device=dev)
+    same = []
+    for wav, mid, n in results:
+        ref = io.BytesIO()
+        n_ref = len(eng.extract_events(eng.analyze(wav), ref))
+        same.append(n == n_ref and open(mid, "rb").read() == ref.getvalue())
+    handles, msgs = sync_warnings_of(lambda: [dispatch_analyze_poly(
+        y, 22050, device=dev) for y in ys])
+    frames = [fetch_analyze_poly(h)["roll"].shape[0] for h in handles]
+    emit({"phase": "poly_folder", "tracks": len(results),
+          "events": [n for _, _, n in results], "equal_to_facade": same,
+          "dispatch_sync_calls": len(msgs), "first": msgs[:3],
+          "frames": frames})
+    if not all(same) or len(results) != len(ys):
+        raise AssertionError("poly folder: differs from the facade")
+    if msgs:
+        raise AssertionError(f"poly folder: dispatch_analyze_poly made "
+                             f"{len(msgs)} synchronizing calls: {msgs[:3]}")
+    viterbi_launches_zero("poly_folder")
+
+
+def phase_poly_live(dev, chord_tracks) -> list:
+    """StreamingPolyTranscriber at tile 24 / halo 8 on every chord track,
+    0.5 s chunks, polled every 2 s: sampled polls equal to _poll_full(),
+    finalize() against the offline engine on the card."""
+    all_stats = []
+    for (name, sr), (y, truth) in chord_tracks.items():
+        rt = StreamingPolyTranscriber(sample_rate=sr, tile_frames=24,
+                                      halo_frames=8, device=dev)
+        final, stats = live_session(dev, y, sr, 24, 8, False, rt=rt)
+        eng = AegisPolyEngine(sample_rate=sr, device=dev)
+        mode = "tiles" if name == "chord600" else False
+        offline = eng.extract_events(eng.analyze(y, turbo_mode=mode))
+        stats["track"] = name
+        stats["f1_vs_offline_engine"] = poly_f1(eng, offline, final)
+        stats["notes_equal_offline_engine"] = \
+            note_tuples(final) == note_tuples(offline)
+        stats["truth_f1"] = f1_of(truth, events_to_seconds(
+            final, sr, eng.hop_length))
+        stats["truth_notes"] = len(truth)
+        emit({"phase": "poly_live", **stats})
+        if stats["f1_vs_offline_engine"] < 0.99:
+            raise AssertionError(f"poly_live {name} @ {sr}: finalize() F1 "
+                                 f"{stats['f1_vs_offline_engine']} against "
+                                 "the offline engine")
+        all_stats.append(stats)
+    return all_stats
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Warm median of ``reps`` host-clock runs of fn() (host code)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_times_poly(dev, chord_tracks, folder: str, live_stats) -> None:
+    """Warm medians of 5, beside the card's name and power limit: analyze
+    and audio_to_midi fused and tiled on each chord track, the device
+    program apart from the host extraction, the folder, the live sessions;
+    a torch.profiler pass over one fused 60 s analyze."""
+    for (name, sr), (y, _) in chord_tracks.items():
+        eng = AegisPolyEngine(sample_rate=sr, device=dev)
+        audio_s = len(y) / sr
+        for mode in (False, "tiles"):
+            label = "tiles" if mode else "fused"
+            analysis = eng.analyze(y, turbo_mode=mode)
+            row = {
+                "analyze_ms": cuda_ms(
+                    lambda: eng.analyze(y, turbo_mode=mode)),
+                "audio_to_midi_ms": cuda_ms(
+                    lambda: eng.audio_to_midi(y, io.BytesIO(),
+                                              turbo_mode=mode)),
+                "extract_events_host_ms": wall_ms(
+                    lambda: eng.extract_events(analysis)),
+            }
+            if not mode:
+                n_fft, hop = poly_window(sr)
+                row["device_program_ms"] = cuda_ms(lambda: fetch_packed(
+                    dispatch_analyze_poly(y, sr, n_fft, hop, device=dev)))
+            emit({"phase": "times", "what": f"poly_{label}", "track": name,
+                  "sr": sr, "audio_s": audio_s, "median_ms": row,
+                  "realtime_factor": audio_s / (row["audio_to_midi_ms"] / 1e3),
+                  "card": CARD["nvidia_smi"]})
+    ms = cuda_ms(lambda: transcribe_folder(
+        folder, os.path.join(folder, "t_poly"), engine="poly", device=dev))
+    emit({"phase": "times", "what": "folder_poly_4x60s", "median_ms": ms,
+          "audio_s": 240.0, "realtime_factor": 240.0 / (ms / 1e3),
+          "card": CARD["nvidia_smi"]})
+    for stats in live_stats:
+        emit({"phase": "times", "what": "poly_live_session", **stats})
+        if stats["track"] == "chord60":
+            sr = stats["sr"]
+            emit(live_profile(
+                dev, chord_tracks[("chord60", sr)][0], sr, 24, 8, False,
+                stats["tile_wall_ms_median"],
+                rt=StreamingPolyTranscriber(sample_rate=sr, tile_frames=24,
+                                            halo_frames=8, device=dev)))
+
+    (y, _), sr = chord_tracks[("chord60", 22050)], 22050
+    eng = AegisPolyEngine(sample_rate=sr, device=dev)
+    warm = cuda_ms(lambda: eng.analyze(y))
+    kernels, profiled_ms = profile_kernels(lambda: eng.analyze(y))
+    busy_ms = sum(us for us, _ in kernels.values()) / 1000.0
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
+    emit({"phase": "profile", "what": "poly_fused_60s_analyze", "sr": sr,
+          "wall_ms_profiled": profiled_ms, "analyze_warm_median_ms": warm,
+          "device_busy_ms": busy_ms,
+          "kernel_launches": sum(c for _, c in kernels.values()),
+          "idle_share_of_warm_median": 1.0 - busy_ms / warm,
+          "top_device_kernels": [[name[:70], us / 1000.0, c]
+                                 for name, (us, c) in top],
+          "card": CARD["nvidia_smi"]})
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -1041,6 +1419,26 @@ def main() -> int:
                        per_call)
     live_ms = timed("times_live", phase_times_live, dev, tracks, live_shapes,
                     live_stats)
+
+    # the polyphonic stack: no hand kernel (its paths run no pYIN), so every
+    # phase also checks that neither Viterbi kernel was launched
+    timed("poly_parts", phase_poly_parts, dev)
+    chord_tracks = {("chord60", 22050): chord_track(60.0, 22050),
+                    ("chord60", 44100): chord_track(60.0, 44100),
+                    ("chord600", 22050): chord_track(600.0, 22050)}
+    timed("poly", phase_poly, dev, chord_tracks)
+    with tempfile.TemporaryDirectory() as folder:
+        ys = []
+        for first_seed in (1, 14, 27, 40):
+            y, _ = chord_track(60.0, 22050, first_seed)
+            write_wav(os.path.join(folder, f"chord60_seed{first_seed}.wav"),
+                      y, 22050)
+            ys.append(y)
+        timed("poly_folder", phase_poly_folder, dev, folder, ys)
+        poly_live_stats = timed("poly_live", phase_poly_live, dev,
+                                chord_tracks)
+        timed("times_poly", phase_times_poly, dev, chord_tracks, folder,
+              poly_live_stats)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that

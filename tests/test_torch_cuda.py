@@ -1,4 +1,5 @@
-"""The CUDA Viterbi kernels vs their plain PyTorch versions, on the card.
+"""The CUDA Viterbi kernels vs their plain PyTorch versions, and the
+polyphonic programs vs the CPU, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so on a machine with a card and no JAX it runs alone:
@@ -237,3 +238,90 @@ def test_live_session_launches_each_kernel_once_a_tile(cuda, financial):
             same = np.isclose(rows_g[:, i], rows_c[:, i], rtol=1e-6,
                               equal_nan=True)
             assert same.mean() >= 0.99, (k, same.mean())
+
+
+# ------------------------------------------------- the polyphonic programs
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [22050, 44100])
+def test_peel_on_the_card_equals_the_cpu_and_the_oracle(cuda, sr):
+    """The peel is an argmax over near-tied saliences and needs full
+    float32 (TF32 off): on the CQT of a chord clip the card's picks agree
+    with the CPU's and the NumPy oracle's on >= 0.999 of entries, saliences
+    rtol 5e-4 / atol 1e-4 where the picks agree."""
+    from aegis_tpu_torch.core import cqt, poly
+    from aegis_tpu_torch.core.tables import poly_tables
+    from aegis_tpu_torch.ref.poly_ref import peel_voices_ref
+    from aegis_tpu_torch.tools.signal_gen import generate_chord_progression
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    scale = sr // 22050
+    y = torch.from_numpy(generate_chord_progression(7, sr)[0])
+    tb_c = poly_tables(sr, 2048 * scale, 84, 12, 128, torch.device("cpu"))
+    tb_g = poly_tables(sr, 2048 * scale, 84, 12, 128, cuda)
+    power = cqt.pseudo_cqt_t(y, 512 * scale, tb_c)
+    b_c, s_c = poly.peel_voices(power, tb_c.supp, tb_c.sub)
+    b_g, s_g = poly.peel_voices(power.to(cuda), tb_g.supp, tb_g.sub)
+    b_r, s_r = peel_voices_ref(power.numpy(), tb_c.supp.numpy(),
+                               tb_c.sub.numpy())
+    b_g, s_g = b_g.cpu().numpy(), s_g.cpu().numpy()
+    for b, s in ((b_c.numpy(), s_c.numpy()), (b_r, s_r)):
+        assert float(np.mean(b_g == b)) >= 0.999
+        same = (b_g == b).all(axis=1)
+        np.testing.assert_allclose(s_g[same], s[same], rtol=5e-4, atol=1e-4)
+    # the device planes against the oracle's on the card's own voices
+    from aegis_tpu_torch.ref.poly_ref import roll_and_confidence_ref
+    roll, conf, sal = poly.roll_and_confidence(torch.from_numpy(b_g).to(cuda),
+                                               torch.from_numpy(s_g).to(cuda))
+    r_r, c_r, a_r = roll_and_confidence_ref(b_g, s_g)
+    np.testing.assert_array_equal(roll.cpu().numpy(), r_r)
+    np.testing.assert_allclose(conf.cpu().numpy(), c_r, rtol=1e-5)
+    np.testing.assert_allclose(sal.cpu().numpy(), a_r, rtol=1e-5)
+    mag = torch.sqrt(power)
+    assert poly.pack_cqt_f16(mag.to(cuda)).cpu().numpy().tobytes() == \
+        poly.pack_cqt_f16(mag).numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [False, "tiles"])
+def test_poly_engine_on_the_card_equals_the_cpu(cuda, mode):
+    """The packed program (fused and tiled) on the card against the same
+    program on the CPU: bins on >= 0.999 of entries, events equal by note,
+    start and end, and neither Viterbi kernel is launched."""
+    from aegis_tpu_torch.engine.poly import AegisPolyEngine
+    from aegis_tpu_torch.tools.signal_gen import generate_chord_progression
+
+    for k in pyin_cuda.LAUNCHES:
+        pyin_cuda.LAUNCHES[k] = 0
+    y = generate_chord_progression(3, 22050)[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = AegisPolyEngine(sample_rate=22050, device=dev)
+        a = eng.analyze(y, turbo_mode=mode)
+        out[dev] = (a, eng.extract_events(a))
+    (a_g, ev_g), (a_c, ev_c) = out["cuda"], out["cpu"]
+    assert (a_g["roll"] == a_c["roll"]).mean() >= 0.9999
+    np.testing.assert_allclose(a_g["rms"], a_c["rms"], atol=1e-6)
+    np.testing.assert_allclose(a_g["onset_env"], a_c["onset_env"], atol=2e-3)
+    assert ev_g and [(e["note"], e["start"], e["end"]) for e in ev_g] == \
+        [(e["note"], e["start"], e["end"]) for e in ev_c]
+    assert not any(pyin_cuda.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_live_poly_session_on_the_card(cuda):
+    from aegis_tpu_torch.engine.realtime import StreamingPolyTranscriber
+    from aegis_tpu_torch.tools.signal_gen import generate_chord_progression
+
+    y = generate_chord_progression(7, 22050)[0]
+    final = {}
+    for dev in ("cuda", "cpu"):
+        rt = StreamingPolyTranscriber(sample_rate=22050, device=dev)
+        for i in range(0, len(y), 7000):
+            rt.feed(y[i:i + 7000])
+        assert rt.poll_events() == rt._poll_full()
+        assert rt._ref_power.device.type == dev
+        final[dev] = rt.finalize()
+    assert final["cuda"] and \
+        [(e["note"], e["start"], e["end"]) for e in final["cuda"]] == \
+        [(e["note"], e["start"], e["end"]) for e in final["cpu"]]

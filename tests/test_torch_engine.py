@@ -130,23 +130,34 @@ def test_raw_data_roundtrip_and_bpm(tmp_path, raws):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What stays unported raises: the neural pitch backend on both facades,
-    the poly and auto folder engines, the polyphonic live transcriber; an
-    unknown turbo mode is an error."""
+    """What stays unported raises: the neural pitch backend on both facades
+    and the folder, and the auto folder engine; an unknown turbo mode is an
+    error.  The poly folder engine and the polyphonic live transcriber are
+    ported: they run."""
     from aegis_tpu_torch.engine.realtime import StreamingPolyTranscriber
-    with pytest.raises(NotImplementedError, match="item 10"):
-        StreamingPolyTranscriber(sample_rate=22050)
+    from aegis_tpu_torch.tools.signal_gen import generate_chord_progression
     y = np.zeros(22050, np.float32)
+    rt = StreamingPolyTranscriber(sample_rate=22050, device="cpu")
+    rt.feed(y)
+    assert rt.frames_analyzed > 0 and rt.finalize() == []
     eng = AegisEngine(sample_rate=22050, device="cpu")
     with pytest.raises(NotImplementedError):
         eng.audio_to_midi(y, pitch_backend="neural")
     with pytest.raises(NotImplementedError):
         AegisFinancialEngine(device="cpu").analyze(y, pitch_backend="neural")
-    for engine in ("poly", "auto"):
-        with pytest.raises(NotImplementedError):
-            transcribe_folder(str(tmp_path), engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError):
+        transcribe_folder(str(tmp_path), engine="auto", device="cpu")
     with pytest.raises(NotImplementedError):
         transcribe_folder(str(tmp_path), pitch_backend="neural", device="cpu")
+    with pytest.raises(ValueError):
+        transcribe_folder(str(tmp_path), engine="poly",
+                          pitch_backend="neural", device="cpu")
+    assert transcribe_folder(str(tmp_path), engine="poly", device="cpu") == []
+    write_wav(str(tmp_path / "c.wav"),
+              generate_chord_progression(7, 22050)[0], 22050)
+    (wav, mid, n), = transcribe_folder(str(tmp_path), engine="poly",
+                                       device="cpu")
+    assert n > 0 and os.path.getsize(mid) > 0
     with pytest.raises(ValueError):
         eng.audio_to_midi(y, turbo_mode="bogus")
 
@@ -185,10 +196,33 @@ def test_cli_transcribe(tmp_path):
 
 # ------------------------------------------------------------------ guards
 
+# the polyphonic stack: fused, tiles, the folder, live, tabs
+_POLY_PATHS = (
+    "from aegis_tpu_torch.engine.poly import AegisPolyEngine\n"
+    "from aegis_tpu_torch.engine.realtime import StreamingPolyTranscriber\n"
+    "from aegis_tpu_torch.midi.tabs import render_ascii_tab\n"
+    "from aegis_tpu_torch.tools.signal_gen import generate_chord_progression\n"
+    "yc = generate_chord_progression(7, 22050)[0][:3 * 22050]\n"
+    "peng = AegisPolyEngine(sample_rate=22050, device='cpu')\n"
+    "for mode in (False, 'tiles'):\n"
+    "    pev = peng.extract_events(peng.analyze(yc, turbo_mode=mode))\n"
+    "    assert pev and render_ascii_tab(peng.generate_tabs(pev)), mode\n"
+    "assert peng.label_chords(pev)\n"
+    "dp = tempfile.mkdtemp()\n"
+    "write_wav(os.path.join(dp, 'c.wav'), yc, 22050)\n"
+    "assert transcribe_folder(dp, engine='poly', device='cpu')[0][2] > 0\n"
+    "prt = StreamingPolyTranscriber(sample_rate=22050, device='cpu')\n"
+    "for i in range(0, len(yc), 5000):\n"
+    "    prt.feed(yc[i:i + 5000])\n"
+    "assert prt.poll_events() and prt.finalize()\n"
+)
+
+
 def test_port_never_imports_jax():
     """With jax made unimportable, the port still runs the v1 path fused,
-    tiled and streamed, the financial engine, the folder sweep, and a live
-    v1 and a live financial session."""
+    tiled and streamed, the financial engine, the folder sweep, a live v1
+    and a live financial session, and the polyphonic stack (fused, tiles,
+    folder, live, tabs)."""
     code = (
         "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"
@@ -219,6 +253,7 @@ def test_port_never_imports_jax():
         "    for i in range(0, len(y), 5000):\n"
         "        rt.feed(y[i:i + 5000])\n"
         "    assert rt.poll_events() and rt.finalize(), live_fin\n"
+        + _POLY_PATHS +
         "loaded = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert all(sys.modules[m] is None for m in loaded), loaded\n"
         "print('ok', len(events))\n")
@@ -264,7 +299,7 @@ _PORT_PATHS = (
     "    for i in range(0, len(y), 5000):\n"
     "        rt.feed(y[i:i + 5000])\n"
     "    assert rt.poll_events() and rt.finalize(), live_fin\n"
-)
+) + _POLY_PATHS
 
 
 def test_port_never_imports_the_jax_package():

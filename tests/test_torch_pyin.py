@@ -355,7 +355,11 @@ def test_every_device_argument_defaults_to_the_card():
                 "engine.engine.AegisEngine",
                 "engine.financial.AegisFinancialEngine",
                 "engine.folder.transcribe_folder",
-                "engine.realtime.StreamingTranscriber"}
+                "engine.realtime.StreamingTranscriber",
+                "engine.poly.dispatch_analyze_poly",
+                "engine.poly.AegisPolyEngine",
+                "engine.turbo.run_analyze_poly_turbo",
+                "engine.realtime.StreamingPolyTranscriber"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -366,15 +370,17 @@ def test_every_device_argument_defaults_to_the_card():
     "pyin", "run_analyze", "dispatch_analyze", "run_analyze_turbo",
     "run_analyze_batch", "run_analyze_streamed", "AegisEngine",
     "AegisFinancialEngine", "transcribe_folder", "StreamingTranscriber",
-    "resolve_device"])
+    "resolve_device", "dispatch_analyze_poly", "AegisPolyEngine",
+    "run_analyze_poly_turbo", "StreamingPolyTranscriber",
+    "transcribe_folder_poly"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
     raises, and none runs the plain versions on the CPU instead."""
     import aegis_tpu_torch
     from aegis_tpu_torch.core import analyze
-    from aegis_tpu_torch.engine import (engine, financial, folder, realtime,
-                                        turbo)
+    from aegis_tpu_torch.engine import (engine, financial, folder, poly,
+                                        realtime, turbo)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     y = np.zeros(4096, np.float32)
     audio = TAudioConfig(sample_rate=SR)
@@ -392,6 +398,13 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
         "transcribe_folder": lambda: folder.transcribe_folder(str(tmp_path)),
         "StreamingTranscriber": lambda: realtime.StreamingTranscriber(),
         "resolve_device": lambda: aegis_tpu_torch.resolve_device(),
+        "dispatch_analyze_poly": lambda: poly.dispatch_analyze_poly(y, SR),
+        "AegisPolyEngine": lambda: poly.AegisPolyEngine(sample_rate=SR),
+        "run_analyze_poly_turbo": lambda: turbo.run_analyze_poly_turbo(y, SR),
+        "StreamingPolyTranscriber":
+            lambda: realtime.StreamingPolyTranscriber(sample_rate=SR),
+        "transcribe_folder_poly":
+            lambda: folder.transcribe_folder(str(tmp_path), engine="poly"),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()

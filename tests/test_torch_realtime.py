@@ -1,6 +1,7 @@
-"""aegis_tpu_torch live transcribers (v1 and financial) on the CPU: against
-the JAX package's ``StreamingTranscriber`` fed the same chunks, against the
-port's own tiled and fused engines, and the finalized-event horizon
+"""aegis_tpu_torch live transcribers (v1, financial and polyphonic) on the
+CPU: against the JAX package's ``StreamingTranscriber`` and
+``StreamingPolyTranscriber`` fed the same chunks, against the port's own
+tiled and fused engines, and the finalized-event horizon
 (``poll_events() == _poll_full()`` at every poll).
 
 The port runs with ``device="cpu"``, where the Viterbi wrappers take their
@@ -13,6 +14,9 @@ plain versions.  Tolerances against the JAX rows, per tile block:
   * ``dist_high_sum`` / ``dist_total_sum``: 2e-3 a summed bin (39 / 128).
 
 Events: every discrete field equal, floats within 1e-5.
+
+Live poly, per tile block: voice bins equal, saliences rtol 5e-4 / atol 1e-4,
+``rms`` 1e-6, ``onset_env`` 2e-3, the f16 CQT plane within one f16 step.
 """
 
 import numpy as np
@@ -20,14 +24,19 @@ import pytest
 import torch
 
 from aegis_tpu.config import AudioConfig as JAudioConfig
+from aegis_tpu.engine.realtime import StreamingPolyTranscriber as JaxPolyStreaming
 from aegis_tpu.engine.realtime import StreamingTranscriber as JaxStreaming
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.engine.financial import AegisFinancialEngine
 from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
                                              StreamingTranscriber)
+from aegis_tpu_torch.core.poly import unpack_cqt_f16
+from aegis_tpu_torch.engine.poly import AegisPolyEngine
 from aegis_tpu_torch.engine.turbo import run_analyze_turbo
-from aegis_tpu_torch.tools.signal_gen import generate_test_track, karplus_strong
+from aegis_tpu_torch.tools.signal_gen import (generate_chord_progression,
+                                              generate_test_track,
+                                              karplus_strong)
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
 
 # One torch thread per process: the suite runs in parallel pytest workers.
@@ -289,9 +298,123 @@ def test_streaming_financial_incremental_trend():
     assert [e["note"] for e in live] == [e["note"] for e in final]
 
 
+def _discrete(events):
+    return [{k: v for k, v in e.items() if not isinstance(v, float)}
+            for e in events]
+
+
 def test_poly_transcriber_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        StreamingPolyTranscriber(sample_rate=SR)
+    """It is ported now (the test keeps its earlier name): the live
+    poly transcriber runs, keeps the JAX surface, and still refuses what a
+    finalized stream must refuse."""
+    rt = StreamingPolyTranscriber(sample_rate=SR, device="cpu")
+    assert rt.poll_events() == [] and rt.frames_analyzed == 0
+    assert 0 < rt.lookahead_s < 3.0
+    assert (rt.hop, rt.n_fft, rt.tile, rt.halo) == (512, 2048, 24, 8)
+    rt44 = StreamingPolyTranscriber(sample_rate=44100, device="cpu")
+    assert (rt44.hop, rt44.n_fft) == (1024, 4096)
+    assert rt44.lookahead_s == pytest.approx(rt.lookahead_s, rel=1e-3)
+    tile_samp, ctx = 24 * 512, rt._ctx
+    assert rt.feed(np.zeros(tile_samp, np.float32)) == 0
+    assert rt.feed(np.zeros(ctx, np.float32)) == 1
+    assert rt.finalize() == [] and rt.poll_events() == []
+    with pytest.raises(RuntimeError, match="finalized"):
+        rt.feed(np.zeros(10, np.float32))
+    empty = StreamingPolyTranscriber(sample_rate=SR, device="cpu")
+    assert empty.finalize() == []
+
+
+@pytest.mark.parametrize("sr,tile,halo", [(22050, 16, 8), (22050, 24, 8),
+                                          (44100, 24, 8)])
+def test_live_poly_rows_and_events_match_jax(sr, tile, halo):
+    """The same random chunks through both packages: per-tile rows within
+    the module's tolerances, the mid-stream poll and finalize() equal in
+    every discrete field, floats within 1e-5 where the picks are equal."""
+    y, _ = generate_chord_progression(7, sr)
+    jrt = JaxPolyStreaming(sample_rate=sr, tile_frames=tile, halo_frames=halo)
+    rt = StreamingPolyTranscriber(sample_rate=sr, tile_frames=tile,
+                                  halo_frames=halo, device="cpu")
+    polls = _feed_randomly([rt, jrt], y, seed=1, poll_at=int(0.6 * len(y)))
+    assert len(rt._rows) == len(jrt._rows) > 3
+    V = 6
+    for a, b in zip(rt._rows, jrt._rows):
+        b = np.asarray(b)
+        assert a.shape == b.shape == (tile, 2 * V + 2 + 42)
+        assert float(np.mean(a[:, :V] == b[:, :V])) >= 0.999
+        same = (a[:, :V] == b[:, :V]).all(axis=1)
+        np.testing.assert_allclose(a[same, V:2 * V], b[same, V:2 * V],
+                                   rtol=5e-4, atol=1e-4)
+        np.testing.assert_allclose(a[:, 2 * V], b[:, 2 * V], atol=1e-6)
+        np.testing.assert_allclose(a[:, 2 * V + 1], b[:, 2 * V + 1],
+                                   atol=2e-3)
+        np.testing.assert_allclose(unpack_cqt_f16(a[:, 2 * V + 2:], 84),
+                                   unpack_cqt_f16(b[:, 2 * V + 2:], 84),
+                                   rtol=2e-3, atol=1e-4)
+    assert polls[0] and _discrete(polls[0]) == _discrete(polls[1])
+    got, want = rt.finalize(), jrt.finalize()
+    assert got
+    assert_same_events(got, want, tol=1e-5 * 20)  # salience is ~1..15
+    assert rt.frames_analyzed == jrt.frames_analyzed
+
+
+@pytest.mark.parametrize("sr", [22050, 44100])
+def test_live_poly_finalize_equals_the_offline_engine(sr):
+    """finalize() gives the offline AegisPolyEngine's events on the same
+    audio at F1 1.0 (the JAX package's own gate); at 22 050 Hz every
+    discrete field is equal (the float fields carry the tile's int16 grid
+    against the track's); at 44 100 Hz two starts of seed 7 sit one frame
+    earlier live than offline, in the JAX package as well (its live
+    finalize gives 51, its offline engine 52, for notes 53 and 57), so
+    there the notes and ends are equal and the starts within one frame.
+    Repeat calls, polls after finalize and a MIDI target agree."""
+    import io
+    y, _ = generate_chord_progression(7, sr)
+    eng = AegisPolyEngine(sample_rate=sr, transport="int16", device="cpu")
+    offline = eng.extract_events(eng.analyze(y))
+    rt = StreamingPolyTranscriber(sample_rate=sr, device="cpu")
+    _feed_randomly([rt], y, seed=0)
+    live = rt.poll_events()
+    got = rt.finalize()
+    assert live and got
+    if sr == 22050:
+        assert _discrete(got) == _discrete(offline)
+    else:
+        assert [(e["note"], e["end"]) for e in got] == \
+            [(e["note"], e["end"]) for e in offline]
+        assert max(abs(a["start"] - b["start"])
+                   for a, b in zip(got, offline)) <= 1
+    m = note_event_f1(events_to_seconds(offline, sr, eng.hop_length),
+                      events_to_seconds(got, sr, eng.hop_length))
+    assert m["f1"] == 1.0, m
+    assert rt.finalize() == got and rt.poll_events() == got
+    buf = io.BytesIO()
+    assert rt.finalize(buf) == got and buf.getvalue().startswith(b"MThd")
+    # chunking does not matter
+    rt2 = StreamingPolyTranscriber(sample_rate=sr, device="cpu")
+    rt2.feed(y)
+    assert rt2.finalize() == got
+
+
+def test_live_poly_buffer_stays_bounded():
+    y = np.tile(generate_chord_progression(3, SR)[0], 3)
+    rt = StreamingPolyTranscriber(sample_rate=SR, device="cpu")
+    worst = 0
+    for i in range(0, len(y), 3000):
+        rt.feed(y[i:i + 3000])
+        worst = max(worst, len(rt._buf))
+    assert worst <= rt._tile_samp + 2 * rt._ctx + 3000
+    assert rt._buf_off > len(y) // 2
+    assert rt._ref_power.shape == (1,) and float(rt._ref_power) > 0
+
+
+def test_live_poly_use_onsets_false_polls_the_full_path():
+    y, _ = generate_chord_progression(1, SR)
+    rt = StreamingPolyTranscriber(sample_rate=SR, device="cpu",
+                                  use_onsets=False)
+    jrt = JaxPolyStreaming(sample_rate=SR, use_onsets=False)
+    _feed_randomly([rt, jrt], y, seed=2)
+    assert rt.poll_events() == rt._poll_full()
+    assert _discrete(rt.finalize()) == _discrete(jrt.finalize())
 
 
 # ---------------------------------------------------------------- the horizon
@@ -343,6 +466,19 @@ def _drive_horizon(rt, y, poll_every_s=3.0):
                 cuts.append(rt._hzn["cut"])
     assert polls >= 9
     return cuts
+
+
+def test_horizon_poll_equals_full_poly():
+    """Every poll of a 30 s chord stream equals the cache-free poll, the
+    freeze cut engages and advances, and finalize is unaffected by it."""
+    y7, _ = generate_chord_progression(7, SR)
+    y3, _ = generate_chord_progression(3, SR)
+    y = np.tile(np.concatenate([y7, y3]), 3)[: int(30 * SR)]
+    rt = StreamingPolyTranscriber(sample_rate=SR, device="cpu")
+    cuts = _drive_horizon(rt, y)
+    assert cuts and cuts[-1] > cuts[0], cuts
+    final = rt.finalize()
+    assert final and rt.poll_events() == final
 
 
 @pytest.mark.parametrize("case", ["v1_louder_midway", "financial", "v1_chug"])
