@@ -7,8 +7,11 @@ versions):
   transcribe  WAV/MP3 -> MIDI via the v1 engine (two-phase)
   financial   WAV/MP3 -> MIDI via the v2 financial engine (5-phase)
   poly        WAV/MP3 -> MIDI via the polyphonic CQT engine
+  auto        WAV/MP3 -> MIDI via the polyphony-aware router (chords
+              through the CQT peel, fast lines through pYIN)
   tabs        WAV/MP3 -> ASCII guitar tablature (--engine v1 | poly)
-  batch       every matching file of a folder -> MIDI (v1, financial, poly)
+  batch       every matching file of a folder -> MIDI (v1, financial,
+              poly, auto)
   stream      live: s16le PCM on stdin -> JSON event lines, MIDI at EOF
 """
 
@@ -86,6 +89,24 @@ def cmd_poly(args) -> int:
     out = _out_path(args)
     analysis = eng.analyze(args.input, start_time=args.start,
                            end_time=args.end, turbo_mode=args.turbo)
+    if analysis is None:
+        print("error: empty audio", file=sys.stderr)
+        return 1
+    events = eng.extract_events(analysis, out, **_extract_kwargs(args))
+    print(f"{len(events)} events -> {out}")
+    return 0
+
+
+def cmd_auto(args) -> int:
+    """Polyphony-aware routed transcription: chords through the CQT peel,
+    fast monophonic lines through pYIN, merged on one frame grid
+    (engine/auto.py)."""
+    from aegis_tpu_torch.engine.auto import AegisAutoEngine
+
+    eng = AegisAutoEngine(sample_rate=args.sr, device=args.device)
+    out = _out_path(args)
+    analysis = eng.analyze(args.input, start_time=args.start,
+                           end_time=args.end)
     if analysis is None:
         print("error: empty audio", file=sys.stderr)
         return 1
@@ -271,7 +292,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="command", required=True)
     for name, fn in (("transcribe", cmd_transcribe),
                      ("financial", cmd_financial),
-                     ("poly", cmd_poly), ("tabs", cmd_tabs)):
+                     ("poly", cmd_poly), ("auto", cmd_auto),
+                     ("tabs", cmd_tabs)):
         p = sub.add_parser(name)
         p.add_argument("input", help="input audio file (wav/mp3/...)")
         p.add_argument("output", nargs="?", default=None,
@@ -288,7 +310,8 @@ def main(argv=None) -> int:
                        help="off = the fused program, tiles = the tiled "
                             "program, stream = bounded-memory slabs, auto = "
                             "stream past 240 s, else fused (poly: stream "
-                            "runs the tiles)")
+                            "runs the tiles; neural: tiles run fused; the "
+                            "auto command always runs fused)")
         p.add_argument("--no-onsets", action="store_true",
                        help="disable onset-envelope event refinement "
                             "(re-attack splitting + attack-time snap); "
@@ -296,11 +319,12 @@ def main(argv=None) -> int:
         p.add_argument("--sr", type=int,
                        default=44100 if name in ("transcribe", "tabs")
                        else 22050)
-        if name != "poly":  # the CQT engine has no pitch backend
+        if name not in ("poly", "auto"):  # CQT / routed: no pitch backend
             p.add_argument("--rake", type=float, default=0.6)
             p.add_argument("--pitch-backend", default="pyin",
                            choices=["pyin", "neural"],
-                           help="only pyin is ported; neural raises")
+                           help="pyin (default) or neural (PitchNet, no "
+                                "Viterbi)")
         if name == "financial":
             p.add_argument("--pitch-source", default="pyin",
                            choices=["pyin", "trend"],
@@ -327,14 +351,17 @@ def main(argv=None) -> int:
                         "exact merge/lag semantics)")
     p.add_argument("--pitch-backend", default="pyin",
                    choices=["pyin", "neural"],
-                   help="only pyin is ported; neural raises")
+                   help="neural = PitchNet dispatch-ahead sweep (v1 and "
+                        "financial)")
     p.add_argument("--engine", default="v1",
                    choices=["v1", "financial", "poly", "auto"],
                    help="pipeline per track: v1 two-phase (default), "
-                        "financial 5-phase or polyphonic CQT; auto raises")
+                        "financial 5-phase, polyphonic CQT, or the "
+                        "polyphony-aware router (auto)")
     p.add_argument("--transport", default="int8",
-                   choices=["int8", "int16", "float32"],
-                   help="audio upload packing (poly keeps its own)")
+                   choices=["int8", "int4", "int16", "float32"],
+                   help="audio upload packing (int4 = throughput over "
+                        "fidelity; poly and auto keep their own)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_batch)
 

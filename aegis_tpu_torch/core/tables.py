@@ -151,7 +151,7 @@ def kalman_gain_table(T: int, process_variance: float,
     return torch.from_numpy(ks).to(device)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def tables_from_numpy(audio: AudioConfig, pyin_cfg: PyinConfig,
                       device: torch.device) -> Tables:
     """All constant tables for one (AudioConfig, PyinConfig, device)."""

@@ -11,12 +11,18 @@ Counterpart of ``aegis_tpu/engine/engine.py`` with the pYIN backend:
   * ``extract_events(raw_data, output_mid, **kw) -> events`` — the
     re-runnable event extraction and MIDI encode.
 
+``pitch_backend="neural"`` swaps pYIN for PitchNet (``models.pitchnet``):
+the fused program, or with ``turbo_mode="stream"`` bounded-memory slabs;
+``"tiles"``, and a stream at a rate with no integral 22 050 Hz hop, run the
+fused program with a log line, as the JAX engine does.
+
 raw_data keeps the JAX engine's schema: {rake_mask, f0, voiced_flag,
 voiced_probs, rms, y, onset_env, mel_db, pitch_backend}, f0 zero-filled on
-unvoiced frames.
+unvoiced frames.  The helpers of the JAX facade are here too:
+``load_audio``, ``detect_rake_patterns``, ``generate_tabs``,
+``export_musicxml`` (``separate_stems`` is not ported).
 
-There is no fallback: a device failure raises, and the neural pitch
-backend raises NotImplementedError.
+There is no fallback: a device failure raises.
 """
 
 from __future__ import annotations
@@ -83,6 +89,42 @@ def analyze_pyin(y: np.ndarray, audio: AudioConfig, pyin_cfg: PyinConfig,
     return run_analyze(y, audio, pyin_cfg, rake_sensitivity, **kw)
 
 
+def analyze_neural(y: np.ndarray, audio: AudioConfig, rake_sensitivity: float,
+                   turbo, fetch_mel: bool, device, financial: bool = False,
+                   use_guitar_filters: bool = True) -> Dict[str, np.ndarray]:
+    """The Perception Phase of both facades with PitchNet, by normalized
+    turbo mode: "stream" runs bounded-memory slabs (v1 only, and only where
+    hop * 22050 / sr is integral); every other mode runs the fused program,
+    with a log line where the caller asked for something else."""
+    from aegis_tpu_torch.models.pitchnet import (default_params,
+                                                 run_analyze_neural,
+                                                 run_analyze_neural_streamed)
+
+    sr, hop = audio.sample_rate, audio.hop_length
+    params = default_params(device)
+    kw = dict(n_fft=audio.n_fft, n_mels=audio.n_mels, fetch_mel=fetch_mel,
+              device=device)
+    if financial:
+        if turbo:
+            log.warning(f"neural backend runs the fused single program; "
+                        f"turbo={turbo!r} ignored")
+        return run_analyze_neural(y, sr, hop, params, rake_sensitivity,
+                                  financial=True,
+                                  use_guitar_filters=use_guitar_filters, **kw)
+    if turbo == "stream":
+        if (hop * 22050) % sr == 0:
+            return run_analyze_neural_streamed(y, sr, hop, params,
+                                               rake_sensitivity, **kw)
+        log.warning(f"neural streamed mode needs an integral 22.05 kHz hop "
+                    f"(sr={sr}); running the fused program")
+        turbo = False
+    if turbo:
+        log.warning(f"neural backend has no sharded-tiles mode; "
+                    f"turbo={turbo!r} runs the fused single program "
+                    f"(turbo_mode='stream' for bounded memory)")
+    return run_analyze_neural(y, sr, hop, params, rake_sensitivity, **kw)
+
+
 class AegisEngine:
     def __init__(self, sample_rate: int = 44100, hop_length: int = 512,
                  n_fft: int = 2048, device="cuda"):
@@ -110,9 +152,8 @@ class AegisEngine:
         end_time = kwargs.get("end_time", None)
         rake_sensitivity = kwargs.get("rake_sensitivity", 0.6)
         pitch_backend = kwargs.get("pitch_backend", "pyin")
-        if pitch_backend != "pyin":
-            raise NotImplementedError(
-                f"pitch_backend={pitch_backend!r}: only pyin is ported")
+        if pitch_backend not in ("pyin", "neural"):
+            raise ValueError(f"unknown pitch backend: {pitch_backend!r}")
 
         if isinstance(input_wav, np.ndarray):
             y = input_wav.astype(np.float32)
@@ -129,9 +170,15 @@ class AegisEngine:
         log.info(f"Perception Phase ({self.device}, turbo={turbo_mode}, "
                  f"{len(y)/self.sr:.1f}s)")
         with torch.profiler.record_function("aegis.perception"):
-            out = analyze_pyin(y, self.audio, self.pyin_cfg, rake_sensitivity,
-                               turbo_mode, kwargs.get("turbo_config"),
-                               kwargs.get("fetch_mel", True), self.device)
+            if pitch_backend == "neural":
+                out = analyze_neural(y, self.audio, rake_sensitivity,
+                                     turbo_mode, kwargs.get("fetch_mel", True),
+                                     self.device)
+            else:
+                out = analyze_pyin(y, self.audio, self.pyin_cfg,
+                                   rake_sensitivity, turbo_mode,
+                                   kwargs.get("turbo_config"),
+                                   kwargs.get("fetch_mel", True), self.device)
 
         raw = {
             "rake_mask": np.asarray(out["rake_mask"]),
@@ -172,7 +219,13 @@ class AegisEngine:
                 # reference's exact merge/lag semantics
                 onset_env=raw_data.get("onset_env")
                 if kwargs.get("use_onsets", True) else None,
-                onset_fwd_snap_ms=kwargs.get("onset_fwd_snap_ms", 0.0),
+                # PitchNet fires up to ~a window early (phase-blind
+                # magnitude features); the forward snap moves such starts
+                # to the attack rise.  pYIN never fires early.
+                onset_fwd_snap_ms=kwargs.get(
+                    "onset_fwd_snap_ms",
+                    100.0 if str(raw_data.get("pitch_backend", "")) == "neural"
+                    else 0.0),
             )
             if output_mid is not None:
                 bpm = kwargs.get("bpm")
@@ -207,3 +260,35 @@ class AegisEngine:
     def load_raw(path: str) -> Dict:
         with np.load(path, allow_pickle=False) as z:
             return {k: z[k] for k in z.files}
+
+    # --------------------------------------------------------------- helpers
+
+    def load_audio(self, file_path: Union[str, bytes], start_time: float = 0,
+                   end_time: Optional[float] = None):
+        """Returns (y, S_dB) with S_dB in librosa layout (n_mels, T), from
+        the NumPy reference spectrogram (host)."""
+        from aegis_tpu_torch.ref.dsp_ref import melspectrogram, power_to_db
+
+        duration = (end_time - start_time) if end_time else None
+        y, _ = _load_audio(file_path, sr=self.sr, offset=start_time,
+                           duration=duration)
+        S_dB = power_to_db(melspectrogram(y, self.sr, self.audio.n_fft,
+                                          self.hop_length, self.audio.n_mels))
+        return y, S_dB
+
+    def detect_rake_patterns(self, S_dB: np.ndarray,
+                             rake_sensitivity: float = 0.6) -> np.ndarray:
+        """S_dB in (n_mels, T) librosa layout (host helper)."""
+        from aegis_tpu_torch.ref.masks_ref import detect_rake
+
+        return detect_rake(S_dB.T, self.hop_length, self.sr, rake_sensitivity)
+
+    def generate_tabs(self, events: List[dict]) -> List[dict]:
+        from aegis_tpu_torch.midi.tabs import generate_tabs
+
+        return generate_tabs(events)
+
+    def export_musicxml(self, tab_data: List[dict], xml_path: str) -> str:
+        from aegis_tpu_torch.midi.musicxml import export_musicxml
+
+        return export_musicxml(tab_data, xml_path)

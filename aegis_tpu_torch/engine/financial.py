@@ -11,8 +11,9 @@ Counterpart of ``aegis_tpu/engine/financial.py`` with the pYIN backend:
 
 Phases 1-4a run on the engine's device as the fused program, the tiled
 program or bounded-memory slabs (``turbo_mode``, as on the v1 engine).
-There is no fallback: a device failure raises, and the neural pitch
-backend raises NotImplementedError.
+``pitch_backend="neural"`` runs PitchNet's fused financial program
+(``models.pitchnet``) whatever the turbo mode, as the JAX engine does.
+There is no fallback: a device failure raises.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from aegis_tpu_torch.midi.encode import events_to_midi_financial
 from aegis_tpu_torch.utils.logging import get_logger
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core.events import extract_events_financial
-from aegis_tpu_torch.engine.engine import analyze_pyin
+from aegis_tpu_torch.engine.engine import analyze_neural, analyze_pyin
 
 log = get_logger("Financial")
 
@@ -59,9 +60,8 @@ class AegisFinancialEngine:
         """Phases 1-4a (cacheable raw analysis).  Returns the frame-level
         analysis dict (f0 is NaN on unvoiced frames)."""
         pitch_backend = kwargs.get("pitch_backend", "pyin")
-        if pitch_backend != "pyin":
-            raise NotImplementedError(
-                f"pitch_backend={pitch_backend!r}: only pyin is ported")
+        if pitch_backend not in ("pyin", "neural"):
+            raise ValueError(f"unknown pitch backend: {pitch_backend!r}")
         if isinstance(input_wav, np.ndarray):
             y = input_wav.astype(np.float32)
         else:
@@ -75,12 +75,19 @@ class AegisFinancialEngine:
             kwargs.get("turbo_mode", False), len(y), self.sr,
             kwargs.get("stream_threshold_s", 240.0))
         with torch.profiler.record_function("financial.perception"):
-            out = analyze_pyin(
-                y, self.audio, self.pyin_cfg,
-                kwargs.get("rake_sensitivity", 0.6), turbo_mode,
-                kwargs.get("turbo_config"), kwargs.get("fetch_mel", True),
-                self.device, financial=True,
-                use_guitar_filters=kwargs.get("use_guitar_filters", True))
+            if pitch_backend == "neural":
+                out = analyze_neural(
+                    y, self.audio, kwargs.get("rake_sensitivity", 0.6),
+                    turbo_mode, kwargs.get("fetch_mel", True), self.device,
+                    financial=True,
+                    use_guitar_filters=kwargs.get("use_guitar_filters", True))
+            else:
+                out = analyze_pyin(
+                    y, self.audio, self.pyin_cfg,
+                    kwargs.get("rake_sensitivity", 0.6), turbo_mode,
+                    kwargs.get("turbo_config"), kwargs.get("fetch_mel", True),
+                    self.device, financial=True,
+                    use_guitar_filters=kwargs.get("use_guitar_filters", True))
         out["y"] = y
         out["pitch_backend"] = pitch_backend
         return out
@@ -117,7 +124,11 @@ class AegisFinancialEngine:
             # use_onsets=False restores the reference's merge/lag semantics
             onset_env=analysis.get("onset_env")
             if kwargs.get("use_onsets", True) else None,
-            onset_fwd_snap_ms=kwargs.get("onset_fwd_snap_ms", 0.0),
+            # the neural backend's forward onset snap (see the v1 facade)
+            onset_fwd_snap_ms=kwargs.get(
+                "onset_fwd_snap_ms",
+                100.0 if str(analysis.get("pitch_backend", "")) == "neural"
+                else 0.0),
             # "pyin" quantizes notes from the median-smoothed f0; "trend" is
             # the reference's over-smoothed semantics
             pitch_source=kwargs.get("pitch_source", "pyin"),

@@ -8,8 +8,10 @@ does not wait for the device) before any result is fetched, so track i+1's
 upload and compute overlap track i's fetch; event extraction and the MIDI
 encode then run per track on the host.  The engines are "v1" and
 "financial" with the pYIN backend and "poly" (chord-capable CQT salience
-peeling through ``engine.poly``, dispatched ahead the same way); "auto" and
-the neural backend are not ported and raise NotImplementedError.
+peeling through ``engine.poly``) and "auto" (the polyphony-aware router,
+``engine.auto``), each dispatched ahead the same way; "v1" and "financial"
+also with the neural backend (PitchNet,
+``models.pitchnet.dispatch_analyze_neural``).
 """
 
 from __future__ import annotations
@@ -58,23 +60,21 @@ def transcribe_folder(
 
     ``turbo`` is accepted for the JAX signature; the one-device path runs
     the fused program and does not tile.  ``transport`` is the upload
-    packing of ``core.analyze.run_analyze`` (int8 | int16 | float32).
+    packing of ``core.analyze.run_analyze`` (int8 | int4 | int16 |
+    float32); the neural backend takes int8 | int16 | float32, and the poly
+    and auto engines keep their own int8 block-float.
     """
     if engine not in ("v1", "financial", "poly", "auto"):
         raise ValueError(f"unknown engine: {engine!r} "
                          "(v1 | financial | poly | auto)")
+    if engine in ("poly", "auto") and pitch_backend != "pyin":
+        raise ValueError("the polyphonic/routed engines embed their own "
+                         "pitch stacks (no neural backend)")
     if pitch_backend not in ("pyin", "neural"):
         raise ValueError(f"unknown pitch backend: {pitch_backend!r}")
-    if engine == "poly" and pitch_backend != "pyin":
-        raise ValueError("the polyphonic engine embeds its own pitch stack "
-                         "(no neural backend)")
-    if engine == "auto" or pitch_backend != "pyin":
-        raise NotImplementedError(
-            f"engine={engine!r}, pitch_backend={pitch_backend!r}: only the "
-            "v1, financial and poly engines with pyin are ported")
-    if transport not in ("int8", "int16", "float32"):
+    if transport not in ("int8", "int4", "int16", "float32"):
         raise ValueError(f"unknown transport {transport!r} "
-                         "(int8 | int16 | float32)")
+                         "(int8 | int4 | int16 | float32)")
     device = resolve_device(device)
 
     paths = sorted(glob.glob(os.path.join(folder, pattern)))
@@ -98,6 +98,24 @@ def transcribe_folder(
         return os.path.join(output_dir,
                             os.path.splitext(os.path.basename(p))[0] + ".mid")
 
+    if engine == "auto":
+        from aegis_tpu_torch.engine.auto import (AegisAutoEngine,
+                                                 dispatch_analyze_auto,
+                                                 fetch_analyze_auto)
+
+        aeng = AegisAutoEngine(sample_rate=sample_rate, device=device)
+        handles = [dispatch_analyze_auto(y, aeng, rake_sensitivity,
+                                         device=device) for y in tracks]
+        results = []
+        for p, h in zip(paths, handles):
+            mid_path = mid_path_of(p)
+            events = aeng.extract_events(fetch_analyze_auto(h, aeng),
+                                         output_mid=mid_path,
+                                         **extract_kwargs)
+            results.append((p, mid_path, len(events)))
+            log.info(f"  {os.path.basename(p)}: {len(events)} events")
+        return results
+
     if engine == "poly":
         from aegis_tpu_torch.engine.poly import (AegisPolyEngine,
                                                  dispatch_analyze_poly,
@@ -118,11 +136,29 @@ def transcribe_folder(
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
 
-    handles = [dispatch_analyze(y, audio, pyin_cfg, rake_sensitivity,
-                                financial=financial, fetch_mel=False,
-                                transport=transport, device=device)
-               for y in tracks]
-    per_track = [fetch_analyze(h) for h in handles]
+    if pitch_backend == "neural":
+        from aegis_tpu_torch.models.pitchnet import (default_params,
+                                                     dispatch_analyze_neural,
+                                                     fetch_analyze_neural)
+
+        params = default_params(device)
+        handles = [dispatch_analyze_neural(
+            y, sample_rate, audio.hop_length, params, rake_sensitivity,
+            n_fft=audio.n_fft, n_mels=audio.n_mels, fetch_mel=False,
+            financial=financial, transport=transport, device=device)
+            for y in tracks]
+        per_track = [fetch_analyze_neural(h) for h in handles]
+        # PitchNet fires up to ~a window early; forward-snap such starts to
+        # the attack rise (the v1 facade's backend convention; the
+        # financial facade reads the pitch_backend marker below)
+        if not financial:
+            extract_kwargs.setdefault("onset_fwd_snap_ms", 100.0)
+    else:
+        handles = [dispatch_analyze(y, audio, pyin_cfg, rake_sensitivity,
+                                    financial=financial, fetch_mel=False,
+                                    transport=transport, device=device)
+                   for y in tracks]
+        per_track = [fetch_analyze(h) for h in handles]
 
     results = []
     if financial:
@@ -132,6 +168,8 @@ def transcribe_folder(
                                     hop_length=audio.hop_length,
                                     n_fft=audio.n_fft, device=device)
         for p, r in zip(paths, per_track):
+            # the facade's backend marker (the neural forward onset snap)
+            r["pitch_backend"] = pitch_backend
             events, info = feng.extract_events(r, **extract_kwargs)
             mid_path = mid_path_of(p)
             events_to_midi_financial(events, sample_rate, audio.hop_length,

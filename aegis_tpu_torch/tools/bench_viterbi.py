@@ -5,8 +5,9 @@
         [--shapes name,name] [--out results.jsonl]
 
 For each shape of the main path (one 60 s track fused at 22 050 and 44 100
-Hz, its tiles, the stream's slab of 16 tiles, the live transcriber's one
-tile a launch: B = 1, T = 40 and 128) and a few edge shapes (T = 1,
+Hz, the auto router's v1 half at 44 100 Hz on hop 1024, its tiles, the
+stream's slab of 16 tiles, the live transcriber's one tile a launch: B = 1,
+T = 40 and 128) and a few edge shapes (T = 1,
 T = 2, n < 2w + 1, a table too large for shared memory) it runs every
 variant of the forward kernel (both destination tiles, one to eight CTAs a
 sequence, the score table in shared or global memory) and the backtrace against the plain PyTorch versions on
@@ -70,14 +71,16 @@ SHAPES = {
     "live_t128_w51": (1, 128, 450, 51, True),
     "fused60_22050": (1, 2625, 450, 101, False),
     "fused60_44100": (1, 5249, 450, 51, False),
+    # the auto router's v1 half at 44 100 Hz, hop 1024: the 60 s bucket
+    "auto60_44100": (1, 2625, 450, 101, False),
     "tiles60_22050": (3, 1152, 450, 101, False),
     "tiles60_44100": (6, 1152, 450, 51, False),
     "stream_slab": (16, 1152, 450, 101, False),
     "batch_40": (40, 300, 450, 101, False),   # 4 B CTAs outnumber the SMs
 }
 LIVE = ("live_t40_w101", "live_t128_w101", "live_t40_w51", "live_t128_w51")
-TIMED = ("fused60_22050", "fused60_44100", "tiles60_22050", "tiles60_44100",
-         "stream_slab", "batch_40") + LIVE
+TIMED = ("fused60_22050", "fused60_44100", "auto60_44100", "tiles60_22050",
+         "tiles60_44100", "stream_slab", "batch_40") + LIVE
 
 
 def emit(out, obj) -> None:

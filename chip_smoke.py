@@ -6,8 +6,9 @@
 Drives the port's main paths, the v1 WAV -> MIDI transcription
 (``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), the
 financial (v2) engine, the tiled, streamed and folder-batch modes, the
-live transcribers, the CUDA kernels and the polyphonic stack, in eighteen
-phases; each raises on failure:
+live transcribers, the CUDA kernels, the polyphonic stack, the auto router
+and the neural (PitchNet) backend, in twenty-one phases; each raises on
+failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -106,12 +107,38 @@ phases; each raises on failure:
                torch.profiler pass over one fused 60 s analyze.
                The polyphonic paths run no pYIN: phases 15-17 fail if either
                Viterbi kernel is launched in them.
+ 19. auto    — AegisAutoEngine on the card: mixed clips of seeds 1-3 and the
+               chord progression of seed 3 at 22 050 Hz, mixed seed 1 and
+               chord seed 3 at 44 100 Hz, the 60 s bench track at both rates
+               (the v1 half on hop 1024 at 44 100 Hz: B = 1, T = 2625,
+               w = 101): exactly one launch of each Viterbi kernel a call at
+               B = 1, F1 >= 0.99 against the same engine on the CPU, truth F1
+               no more than 0.01 under the JAX engine's own on the CPU
+               (JAX_CPU_AUTO_TRUTH_F1); both kernels against their plain
+               versions on the router's observations of the 60 s tracks;
+               transcribe_folder(engine="auto") over four clips as WAVs:
+               MIDI equal to the facade's, no synchronizing call in
+               dispatch_analyze_auto.
+ 20. neural  — AegisEngine(pitch_backend="neural") fused on the 60 s track
+               at both rates and streamed on the 10-minute track, the
+               financial engine neural on 60 s, the neural folder over four
+               60 s WAVs: no Viterbi launch, F1 >= 0.99 against the CPU
+               engine, truth F1 at the JAX engine's own
+               (JAX_CPU_NEURAL_TRUTH_F1), the streamed rows against the fused
+               program's at int16 (discrete rows equal, floats within
+               rtol 1e-5), folder MIDI equal to the facade's.
+ 21. times   — warm medians of 5, beside the card's name and power limit:
+               auto analyze and audio_to_midi at 60 s at both rates,
+               extract_events apart, the auto folder; neural fused analyze
+               and audio_to_midi at both rates, the 10-minute stream, the
+               neural folder; a torch.profiler pass over a fused auto and a
+               fused neural analyze; the kernels at the auto 44 100 Hz shape.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
 every shape the launches one call made in this run, its time beside the
-plain version's and its bound; the serial floor stands on the times lines;
-no single PyTorch call computes a Viterbi decode, so library_ms is null), then
+plain version's, its bound and its serial floor; no single PyTorch call
+computes a Viterbi decode, so library_ms is null), then
 as the last line {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when torch.cuda.is_available() is False or
 the package is missing.
@@ -143,6 +170,9 @@ from aegis_tpu_torch.core.analyze import (dequant_transport, dispatch_analyze,
 from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.core.tables import poly_tables, tables_from_numpy
 from aegis_tpu_torch.engine import turbo as tturbo
+from aegis_tpu_torch.engine.auto import (AegisAutoEngine,
+                                         dispatch_analyze_auto,
+                                         fetch_analyze_auto)
 from aegis_tpu_torch.engine.engine import AegisEngine
 from aegis_tpu_torch.engine.financial import AegisFinancialEngine
 from aegis_tpu_torch.engine.folder import transcribe_folder
@@ -153,12 +183,15 @@ from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
                                              StreamingTranscriber)
 from aegis_tpu_torch.io import write_wav
 from aegis_tpu_torch.midi import midi_to_notes
+from aegis_tpu_torch.models.pitchnet import (run_analyze_neural,
+                                             run_analyze_neural_streamed)
 from aegis_tpu_torch.ref.poly_ref import peel_voices_ref
 from aegis_tpu_torch.tools.bench_viterbi import (band_and_table, cuda_ms,
                                                  forward_variant,
                                                  synthetic_inputs)
 from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
                                               generate_chord_progression,
+                                              generate_mixed_clip,
                                               generate_test_track)
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
 
@@ -238,14 +271,16 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": seconds, "library": so_path.name})
 
 
-def real_obs(y: np.ndarray, sr: int, dev: torch.device):
+def real_obs(y: np.ndarray, sr: int, dev: torch.device, hop: int = HOP):
     """The decode's observations for a track, as the main path computes
-    them on the card (bucket padding, int8 transport, pYIN stages)."""
-    tables = tables_from_numpy(AudioConfig(sample_rate=sr), CFG, dev)
+    them on the card (bucket padding, int8 transport, pYIN stages); ``hop``
+    1024 at 44 100 Hz is the auto router's v1 half."""
+    tables = tables_from_numpy(AudioConfig(sample_rate=sr, hop_length=hop),
+                               CFG, dev)
     y8, s8 = quantize_pcm8(pad_to_bucket(np.asarray(y, np.float32)))
     yd = dequant_transport(torch.from_numpy(y8).to(dev),
                            torch.from_numpy(s8).to(dev))
-    frames = tpyin.extract_pyin_frames(yd, HOP, CFG)
+    frames = tpyin.extract_pyin_frames(yd, hop, CFG)
     obs, vprob = tpyin.frame_observations(frames, sr, CFG, tables)
     return obs, vprob, tables
 
@@ -1359,18 +1394,300 @@ def phase_times_poly(dev, chord_tracks, folder: str, live_stats) -> None:
 
     (y, _), sr = chord_tracks[("chord60", 22050)], 22050
     eng = AegisPolyEngine(sample_rate=sr, device=dev)
-    warm = cuda_ms(lambda: eng.analyze(y))
-    kernels, profiled_ms = profile_kernels(lambda: eng.analyze(y))
+    emit(profile_row("poly_fused_60s_analyze", lambda: eng.analyze(y), sr))
+
+
+# --------------------------------------------------------------------------
+# The auto router (pYIN + the peel in one program) and the neural backend
+# --------------------------------------------------------------------------
+
+# Truth F1 of the JAX package's engines on the CPU (JAX_PLATFORMS=cpu) on the
+# very clips and tracks these phases make, with the engines' defaults
+# (AegisAutoEngine: analyze + extract_events; the neural v1 engine:
+# audio_to_midi(pitch_backend="neural") + extract_events at confidence 0.3,
+# the 10-minute track with turbo_mode="stream"; the neural financial engine:
+# analyze + extract_events), scored by note_event_f1 against the clip's
+# truth.  The port on the card is gated at these less TRUTH_SLACK.
+JAX_CPU_AUTO_TRUTH_F1 = {("mixed1", 22050): 0.9803921568627451,   # 26 events, 25 notes
+                         ("mixed2", 22050): 1.0,                  # 25 of 25
+                         ("mixed3", 22050): 0.92,                 # 25, 25
+                         ("chord3", 22050): 1.0,                  # 12 of 12
+                         ("mixed1", 44100): 1.0,                  # 25 of 25
+                         ("chord3", 44100): 1.0,                  # 12 of 12
+                         ("bench60", 22050): 0.9967213114754099,  # 153, 152
+                         ("bench60", 44100): 0.9900332225913622}  # 151, 150
+JAX_CPU_NEURAL_TRUTH_F1 = {("bench60", 22050): 1.0,                 # 152 of 152
+                           ("bench60", 44100): 0.8996763754045306,  # 159, 150
+                           ("bench600", 22050): 0.9842122942559623,  # 1496, 1481
+                           ("financial60", 22050): 0.9706840390879479}  # 155, 152
+TRUTH_SLACK = 0.01
+
+
+def auto_clips(tracks):
+    """(name, sr, y, truth) of the auto phase: the mixed and chord clips,
+    then the 60 s bench track at both rates."""
+    clips = [(f"mixed{s}", 22050, *generate_mixed_clip(s)) for s in (1, 2, 3)]
+    clips += [("chord3", 22050, *generate_chord_progression(3, 22050)),
+              ("mixed1", 44100, *generate_mixed_clip(1, sr=44100)),
+              ("chord3", 44100, *generate_chord_progression(3, 44100))]
+    clips += [("bench60", sr, *tracks[sr]) for sr in (22050, 44100)]
+    return clips
+
+
+def phase_auto(dev, tracks, folder: str, errs, total: dict,
+               per_call: dict) -> dict:
+    """AegisAutoEngine on the card: one launch of each Viterbi kernel a
+    call at B = 1, F1 >= 0.99 against the same engine on the CPU, truth F1
+    at the JAX engine's own; both kernels against their plain versions on
+    the router's observations of the 60 s tracks (44 100 Hz: hop 1024); the
+    folder sweep against the facade, its dispatch half without a
+    synchronizing call.  Returns the 44 100 Hz observations."""
+    engines = {sr: (AegisAutoEngine(sample_rate=sr, device=dev),
+                    AegisAutoEngine(sample_rate=sr, device="cpu"))
+               for sr in (22050, 44100)}
+    for name, sr, y, truth in auto_clips(tracks):
+        eng, cpu = engines[sr]
+        a, counts, batch = run_counted(lambda: eng.analyze(y))
+        expect_launches(f"auto {name} {sr}", counts, batch, 1, 1)
+        add_counts(total, counts)
+        if name == "bench60":
+            per_call[f"auto60_{sr}"] = counts
+        buf = io.BytesIO()
+        events = eng.extract_events(a, buf)
+        ev_cpu = cpu.extract_events(cpu.analyze(y))
+        T = 1 + len(y) // eng.hop_length
+        if (a["v1"]["f0"].shape != (T,) or a["poly"]["roll"].shape != (T, 128)
+                or not np.isfinite(a["v1"]["rms"]).all()
+                or not buf.getvalue().startswith(b"MThd")):
+            raise AssertionError(f"auto {name} @ {sr}: bad analysis or no MIDI")
+        row = {"phase": "auto", "clip": name, "sr": sr,
+               "seconds": len(y) / sr, "events": len(events),
+               "sources": sorted({e["source"] for e in events}),
+               "truth_notes": len(truth),
+               "truth_f1": f1_of(truth, events_to_seconds(
+                   events, sr, eng.hop_length)),
+               "jax_cpu_truth_f1": JAX_CPU_AUTO_TRUTH_F1[(name, sr)],
+               "f1_vs_cpu": poly_f1(eng, ev_cpu, events),
+               "notes_equal_cpu": note_tuples(events) == note_tuples(ev_cpu)}
+        emit(row)
+        if row["f1_vs_cpu"] < 0.99:
+            raise AssertionError(f"auto {name} @ {sr}: F1 vs CPU {row}")
+        if row["truth_f1"] < row["jax_cpu_truth_f1"] - TRUTH_SLACK:
+            raise AssertionError(f"auto {name} @ {sr}: truth F1 below the "
+                                 f"JAX engine's: {row}")
+
+    shapes = {}
+    for sr, (y, _) in tracks.items():
+        obs, vprob, tables = real_obs(y, sr, dev, engines[sr][0].hop_length)
+        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
+        compare_kernels(f"auto60_{sr}", lo_v, lo_u, tables.band,
+                        tables.band_tab, tables.half_width, 1.0, errs)
+        shapes[sr] = (obs, vprob, tables)
+
+    eng = engines[22050][0]
+    results, counts, batch = run_counted(lambda: transcribe_folder(
+        folder, os.path.join(folder, "mid_auto"), engine="auto", device=dev))
+    expect_launches("auto folder", counts, batch, len(results), 1)
+    add_counts(total, counts)
+    same = []
+    for wav, mid, n in results:
+        ref = io.BytesIO()
+        n_ref = len(eng.extract_events(eng.analyze(wav), ref))
+        same.append(n == n_ref and open(mid, "rb").read() == ref.getvalue())
+    ys = [eng.analyze(wav)["y"] for wav, _, _ in results]
+    handles, msgs = sync_warnings_of(lambda: [dispatch_analyze_auto(
+        y, eng, device=dev) for y in ys])
+    for h in handles:
+        fetch_analyze_auto(h, eng)
+    emit({"phase": "auto_folder", "tracks": len(results),
+          "events": [n for _, _, n in results], "equal_to_facade": same,
+          "dispatch_sync_calls": len(msgs), "first": msgs[:3]})
+    if not all(same) or len(results) != 4:
+        raise AssertionError("auto folder: differs from the facade")
+    if msgs:
+        raise AssertionError(f"auto folder: dispatch_analyze_auto made "
+                             f"{len(msgs)} synchronizing calls: {msgs[:3]}")
+    return shapes[44100]
+
+
+def neural_events(eng, raw):
+    return eng.extract_events(raw, None, confidence_threshold=0.3)
+
+
+def phase_neural(dev, tracks, y10, truth10, folder: str) -> None:
+    """AegisEngine(pitch_backend="neural") on the card, fused at both rates
+    on 60 s and streamed on 10 minutes; the financial engine neural on 60
+    s; the neural folder.  No Viterbi launch anywhere; F1 >= 0.99 against
+    the same engine on the CPU; truth F1 at the JAX engine's own; the
+    streamed rows equal the fused rows at the int16 transport; folder MIDI
+    equal to the facade's."""
+    reset_counts()
+    for sr, (y, truth) in tracks.items():
+        eng = AegisEngine(sample_rate=sr, device=dev)
+        cpu = AegisEngine(sample_rate=sr, device="cpu")
+        raw = eng.audio_to_midi(y, pitch_backend="neural")
+        events = neural_events(eng, raw)
+        ev_cpu = neural_events(cpu, cpu.audio_to_midi(
+            y, pitch_backend="neural"))
+        row = {"phase": "neural", "mode": "fused", "clip": "bench60",
+               "sr": sr, "events": len(events), "truth_notes": len(truth),
+               "truth_f1": f1_of(truth, secs(events, sr)),
+               "jax_cpu_truth_f1": JAX_CPU_NEURAL_TRUTH_F1[("bench60", sr)],
+               "f1_vs_cpu": f1_of(secs(ev_cpu, sr), secs(events, sr)),
+               "notes_equal_cpu": note_tuples(events) == note_tuples(ev_cpu)}
+        emit(row)
+        neural_gates(row)
+
+    eng = AegisEngine(sample_rate=22050, device=dev)
+    raw = eng.audio_to_midi(y10, pitch_backend="neural", turbo_mode="stream")
+    events = neural_events(eng, raw)
+    cpu = AegisEngine(sample_rate=22050, device="cpu")
+    ev_cpu = neural_events(cpu, cpu.audio_to_midi(
+        y10, pitch_backend="neural", turbo_mode="stream"))
+    streamed = run_analyze_neural_streamed(y10, 22050, 512, device=dev)
+    fused = run_analyze_neural(y10, 22050, 512, fetch_mel=False,
+                               transport="int16", device=dev)
+    discrete_equal = {k: bool(np.array_equal(streamed[k], fused[k]))
+                      for k in ("voiced_flag", "rake_mask")}
+    within = {k: bool(np.allclose(np.nan_to_num(streamed[k]),
+                                  np.nan_to_num(fused[k]),
+                                  rtol=1e-5, atol=1e-6))
+              for k in ("f0", "voiced_probs", "rms", "onset_env")}
+    row = {"phase": "neural", "mode": "stream", "clip": "bench600",
+           "sr": 22050, "events": len(events), "truth_notes": len(truth10),
+           "truth_f1": f1_of(truth10, secs(events, 22050)),
+           "jax_cpu_truth_f1": JAX_CPU_NEURAL_TRUTH_F1[("bench600", 22050)],
+           "f1_vs_cpu": f1_of(secs(ev_cpu, 22050), secs(events, 22050)),
+           "stream_discrete_rows_equal_fused_int16": discrete_equal,
+           "stream_float_rows_within_rtol_1e-5_atol_1e-6": within,
+           "stream_rows_bit_identical": {
+               k: bool(np.array_equal(streamed[k], fused[k], equal_nan=True))
+               for k in ("f0", "voiced_probs", "rms", "onset_env")}}
+    emit(row)
+    neural_gates(row)
+    if not (all(discrete_equal.values()) and all(within.values())):
+        raise AssertionError(f"neural stream: rows differ from the fused "
+                             f"program at int16: {row}")
+
+    y, truth = tracks[22050]
+    fin = AegisFinancialEngine(sample_rate=22050, device=dev)
+    fcpu = AegisFinancialEngine(sample_rate=22050, device="cpu")
+    fev, _ = fin.extract_events(fin.analyze(y, pitch_backend="neural"))
+    fev_cpu, _ = fcpu.extract_events(fcpu.analyze(y, pitch_backend="neural"))
+    row = {"phase": "neural", "mode": "financial", "clip": "bench60",
+           "sr": 22050, "events": len(fev), "truth_notes": len(truth),
+           "truth_f1": f1_of(truth, secs(fev, 22050)),
+           "jax_cpu_truth_f1": JAX_CPU_NEURAL_TRUTH_F1[("financial60",
+                                                        22050)],
+           "f1_vs_cpu": f1_of(secs(fev_cpu, 22050), secs(fev, 22050))}
+    emit(row)
+    neural_gates(row)
+
+    results = transcribe_folder(folder, os.path.join(folder, "mid_neural"),
+                                pitch_backend="neural", device=dev)
+    eng = AegisEngine(sample_rate=22050, device=dev)
+    same = []
+    for wav, mid, n in results:
+        ref = io.BytesIO()
+        n_ref = len(eng.extract_events(
+            eng.audio_to_midi(wav, pitch_backend="neural", fetch_mel=False),
+            ref))
+        same.append(n == n_ref and open(mid, "rb").read() == ref.getvalue())
+    emit({"phase": "neural_folder", "tracks": len(results),
+          "events": [n for _, _, n in results], "equal_to_facade": same})
+    if not all(same) or len(results) != 4:
+        raise AssertionError("neural folder: differs from the facade")
+    if any(pyin_cuda.LAUNCHES.values()):
+        raise AssertionError(f"neural: a neural path launched a Viterbi "
+                             f"kernel {dict(pyin_cuda.LAUNCHES)}")
+
+
+def neural_gates(row: dict) -> None:
+    if row["f1_vs_cpu"] < 0.99:
+        raise AssertionError(f"neural: F1 vs CPU below 0.99: {row}")
+    if row["truth_f1"] < row["jax_cpu_truth_f1"] - TRUTH_SLACK:
+        raise AssertionError(f"neural: truth F1 below the JAX engine's: "
+                             f"{row}")
+
+
+def profile_row(what: str, fn, sr: int) -> dict:
+    """torch.profiler over one run of fn() beside its warm median: device
+    busy ms, launches, idle share."""
+    warm = cuda_ms(fn)
+    kernels, profiled_ms = profile_kernels(fn)
     busy_ms = sum(us for us, _ in kernels.values()) / 1000.0
     top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
-    emit({"phase": "profile", "what": "poly_fused_60s_analyze", "sr": sr,
-          "wall_ms_profiled": profiled_ms, "analyze_warm_median_ms": warm,
-          "device_busy_ms": busy_ms,
-          "kernel_launches": sum(c for _, c in kernels.values()),
-          "idle_share_of_warm_median": 1.0 - busy_ms / warm,
-          "top_device_kernels": [[name[:70], us / 1000.0, c]
-                                 for name, (us, c) in top],
+    return {"phase": "profile", "what": what, "sr": sr,
+            "wall_ms_profiled": profiled_ms, "warm_median_ms": warm,
+            "device_busy_ms": busy_ms,
+            "kernel_launches": sum(c for _, c in kernels.values()),
+            "idle_share_of_warm_median": 1.0 - busy_ms / warm,
+            "top_device_kernels": [[name[:70], us / 1000.0, c]
+                                   for name, (us, c) in top],
+            "card": CARD["nvidia_smi"]}
+
+
+def phase_times_auto_neural(dev, tracks, y10, auto_folder: str,
+                            neural_folder: str, auto_obs) -> dict:
+    """Warm medians of 5 (CUDA events), beside the card's name and power
+    limit: the auto router's analyze and audio_to_midi at 60 s at both
+    rates (extract_events apart, host clock), the auto folder, the neural
+    engine fused at both rates, streamed on 10 minutes, its folder; a
+    torch.profiler pass over a fused auto and a fused neural analyze; the
+    kernels at the router's 44 100 Hz shape.  Returns that kernel row."""
+    for sr, (y, _) in tracks.items():
+        eng = AegisAutoEngine(sample_rate=sr, device=dev)
+        analysis = eng.analyze(y)
+        row = {"analyze_ms": cuda_ms(lambda: eng.analyze(y)),
+               "audio_to_midi_ms": cuda_ms(
+                   lambda: eng.audio_to_midi(y, io.BytesIO())),
+               "extract_events_host_ms": wall_ms(
+                   lambda: eng.extract_events(analysis))}
+        emit({"phase": "times", "what": "auto_fused", "sr": sr,
+              "audio_s": len(y) / sr, "median_ms": row,
+              "realtime_factor": len(y) / sr / (row["audio_to_midi_ms"] / 1e3),
+              "card": CARD["nvidia_smi"]})
+    ms = cuda_ms(lambda: transcribe_folder(
+        auto_folder, os.path.join(auto_folder, "t_auto"), engine="auto",
+        device=dev))
+    emit({"phase": "times", "what": "folder_auto_4_clips", "median_ms": ms,
           "card": CARD["nvidia_smi"]})
+    for sr, (y, _) in tracks.items():
+        eng = AegisEngine(sample_rate=sr, device=dev)
+        row = {"analyze_ms": cuda_ms(
+                   lambda: eng.audio_to_midi(y, pitch_backend="neural")),
+               "audio_to_midi_ms": cuda_ms(
+                   lambda: eng.audio_to_midi(y, io.BytesIO(),
+                                             pitch_backend="neural"))}
+        emit({"phase": "times", "what": "neural_fused", "sr": sr,
+              "audio_s": len(y) / sr, "median_ms": row,
+              "realtime_factor": len(y) / sr / (row["audio_to_midi_ms"] / 1e3),
+              "card": CARD["nvidia_smi"]})
+    eng = AegisEngine(sample_rate=22050, device=dev)
+    ms = cuda_ms(lambda: eng.audio_to_midi(y10, pitch_backend="neural",
+                                           turbo_mode="stream"))
+    emit({"phase": "times", "what": "neural_stream_600s", "median_ms": ms,
+          "audio_s": len(y10) / 22050,
+          "realtime_factor": len(y10) / 22050 / (ms / 1e3),
+          "card": CARD["nvidia_smi"]})
+    ms = cuda_ms(lambda: transcribe_folder(
+        neural_folder, os.path.join(neural_folder, "t_neural"),
+        pitch_backend="neural", device=dev))
+    emit({"phase": "times", "what": "folder_neural_4x60s", "median_ms": ms,
+          "audio_s": 240.0, "realtime_factor": 240.0 / (ms / 1e3),
+          "card": CARD["nvidia_smi"]})
+
+    y, _ = tracks[22050]
+    aeng = AegisAutoEngine(sample_rate=22050, device=dev)
+    emit(profile_row("auto_fused_60s_analyze", lambda: aeng.analyze(y), 22050))
+    emit(profile_row("neural_fused_60s_analyze", lambda: eng.audio_to_midi(
+        y, pitch_backend="neural"), 22050))
+
+    obs, vprob, tables = auto_obs
+    row = time_kernels(obs[None], vprob[None], tables, False)
+    emit({"phase": "times", "what": "viterbi_auto", "sr": 44100, "hop": 1024,
+          **row["shape"], "median_ms": row, "card": CARD["nvidia_smi"]})
+    return row
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -1439,6 +1756,22 @@ def main() -> int:
                                 chord_tracks)
         timed("times_poly", phase_times_poly, dev, chord_tracks, folder,
               poly_live_stats)
+
+    # the auto router (its v1 half launches both kernels once a call) and
+    # the neural backend (which launches neither)
+    with tempfile.TemporaryDirectory() as auto_folder, \
+            tempfile.TemporaryDirectory() as neural_folder:
+        for name, sr, y, _ in auto_clips(tracks)[:4]:
+            write_wav(os.path.join(auto_folder, f"{name}.wav"), y, sr)
+        for seed in (42, 43, 44, 45):
+            write_wav(os.path.join(neural_folder, f"bench60_seed{seed}.wav"),
+                      generate_bench_track(60.0, sr=22050, seed=seed), 22050)
+        auto_obs = timed("auto", phase_auto, dev, tracks, auto_folder, errs,
+                         total, per_call)
+        timed("neural", phase_neural, dev, tracks, y10, truth10,
+              neural_folder)
+        auto_ms = timed("times_auto_neural", phase_times_auto_neural, dev,
+                        tracks, y10, auto_folder, neural_folder, auto_obs)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -1454,6 +1787,8 @@ def main() -> int:
          tiles_ms["tiles60_44100"]),
         ("turbo_mode stream, 10 minutes at 22 050 Hz in slabs of 16 tiles",
          per_call["stream_slab_22050"], tiles_ms["stream_slab_22050"]),
+        ("AegisAutoEngine.analyze, 60 s at 44 100 Hz, hop 1024",
+         per_call["auto60_44100"], auto_ms),
     ] + [
         (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
          "launch", per_call[("live", sr, tile, halo)],
@@ -1475,6 +1810,8 @@ def main() -> int:
                             "plain_ms": row[f"{name}_plain"],
                             "bound_ms": row["bounds"][name]["bound_ms"],
                             "bound_by": row["bounds"][name]["bound_by"],
+                            "serial_floor_ms":
+                                row["bounds"][name]["serial_floor_ms"],
                             "library_ms": None}
                            for path, counts, row in by_shape]}
 

@@ -325,3 +325,52 @@ def test_live_poly_session_on_the_card(cuda):
     assert final["cuda"] and \
         [(e["note"], e["start"], e["end"]) for e in final["cuda"]] == \
         [(e["note"], e["start"], e["end"]) for e in final["cpu"]]
+
+
+# ------------------------------------------- the auto router's v1 half
+
+@pytest.mark.cuda
+def test_kernels_at_the_auto_44100_shape(cuda):
+    """The auto router's v1 half runs pYIN at 44 100 Hz on hop 1024: on the
+    60 s bench track that is B = 1, T = 2625, w = 101.  Both kernels on the
+    observations the router's program computes there, against their plain
+    versions: backpointers, final delta and states identical; and one
+    AegisAutoEngine.analyze launches each kernel once, at B = 1."""
+    from aegis_tpu_torch.config import AudioConfig
+    from aegis_tpu_torch.core import pyin as tpyin
+    from aegis_tpu_torch.core.analyze import (dequant_transport,
+                                              pad_to_bucket, quantize_pcm8)
+    from aegis_tpu_torch.core.tables import tables_from_numpy
+    from aegis_tpu_torch.engine.auto import AegisAutoEngine
+    from aegis_tpu_torch.tools.signal_gen import generate_bench_track
+
+    y = generate_bench_track(60.0, sr=44100)
+    tables = tables_from_numpy(AudioConfig(sample_rate=44100,
+                                           hop_length=1024), CFG, cuda)
+    y8, s8 = quantize_pcm8(pad_to_bucket(y))
+    yd = dequant_transport(torch.from_numpy(y8).to(cuda),
+                           torch.from_numpy(s8).to(cuda))
+    frames = tpyin.extract_pyin_frames(yd, 1024, CFG)
+    obs, vprob = tpyin.frame_observations(frames, 44100, CFG, tables)
+    lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
+    assert lo_v.shape[:2] == (1, 2625) and tables.half_width == 101
+    n, w = N, tables.half_width
+    psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(
+        lo_v, lo_u, tables.band, n, w, LOG_STAY, LOG_SWITCH, tables.band_tab)
+    states = pyin_cuda.viterbi_back(d_last, psi_v, psi_u)
+    p_v, p_u, p_last = pyin_cuda.viterbi_fwd_plain(
+        lo_v, lo_u, pyin_cuda.dense_from_band(tables.band, n, w), LOG_STAY,
+        LOG_SWITCH)
+    assert torch.equal(psi_v, p_v) and torch.equal(psi_u, p_u)
+    assert torch.equal(d_last, p_last)
+    assert torch.equal(states, pyin_cuda.viterbi_back_plain(p_last, p_v, p_u))
+
+    eng = AegisAutoEngine(sample_rate=44100, device=cuda)
+    for counts in (pyin_cuda.LAUNCHES, pyin_cuda.SEQUENCES):
+        for k in counts:
+            counts[k] = 0
+    a = eng.analyze(y)
+    torch.cuda.synchronize()
+    assert pyin_cuda.LAUNCHES == {"viterbi_fwd": 1, "viterbi_back": 1}
+    assert pyin_cuda.LAST_BATCH == {"viterbi_fwd": 1, "viterbi_back": 1}
+    assert a["v1"]["f0"].shape == (1 + len(y) // 1024,)

@@ -130,10 +130,12 @@ def test_raw_data_roundtrip_and_bpm(tmp_path, raws):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What stays unported raises: the neural pitch backend on both facades
-    and the folder, and the auto folder engine; an unknown turbo mode is an
-    error.  The poly folder engine and the polyphonic live transcriber are
-    ported: they run."""
+    """What stays unported or unknown raises: the facade has no
+    ``separate_stems`` (it comes with HPSS), an unknown pitch backend, a
+    pitch backend on the engines that embed their own, an unknown
+    transport, an unknown turbo mode.  The poly and auto folder engines,
+    the neural backend and the polyphonic live transcriber are ported:
+    they run."""
     from aegis_tpu_torch.engine.realtime import StreamingPolyTranscriber
     from aegis_tpu_torch.tools.signal_gen import generate_chord_progression
     y = np.zeros(22050, np.float32)
@@ -141,21 +143,26 @@ def test_unported_modes_raise(tmp_path):
     rt.feed(y)
     assert rt.frames_analyzed > 0 and rt.finalize() == []
     eng = AegisEngine(sample_rate=22050, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.audio_to_midi(y, pitch_backend="neural")
-    with pytest.raises(NotImplementedError):
-        AegisFinancialEngine(device="cpu").analyze(y, pitch_backend="neural")
-    with pytest.raises(NotImplementedError):
-        transcribe_folder(str(tmp_path), engine="auto", device="cpu")
-    with pytest.raises(NotImplementedError):
-        transcribe_folder(str(tmp_path), pitch_backend="neural", device="cpu")
+    assert not hasattr(eng, "separate_stems")
+    assert hasattr(JaxEngine, "separate_stems")
     with pytest.raises(ValueError):
-        transcribe_folder(str(tmp_path), engine="poly",
-                          pitch_backend="neural", device="cpu")
+        eng.audio_to_midi(y, pitch_backend="bogus")
+    with pytest.raises(ValueError):
+        AegisFinancialEngine(device="cpu").analyze(y, pitch_backend="bogus")
+    for engine in ("poly", "auto"):
+        with pytest.raises(ValueError):
+            transcribe_folder(str(tmp_path), engine=engine,
+                              pitch_backend="neural", device="cpu")
+    with pytest.raises(ValueError):
+        transcribe_folder(str(tmp_path), transport="int2", device="cpu")
     assert transcribe_folder(str(tmp_path), engine="poly", device="cpu") == []
     write_wav(str(tmp_path / "c.wav"),
               generate_chord_progression(7, 22050)[0], 22050)
-    (wav, mid, n), = transcribe_folder(str(tmp_path), engine="poly",
+    for engine in ("poly", "auto"):
+        (wav, mid, n), = transcribe_folder(str(tmp_path), engine=engine,
+                                           device="cpu")
+        assert n > 0 and os.path.getsize(mid) > 0
+    (wav, mid, n), = transcribe_folder(str(tmp_path), pitch_backend="neural",
                                        device="cpu")
     assert n > 0 and os.path.getsize(mid) > 0
     with pytest.raises(ValueError):
@@ -194,6 +201,98 @@ def test_cli_transcribe(tmp_path):
     assert {40, 45, 50} <= {n["note"] for n in midi_to_notes(str(mid))}
 
 
+@pytest.mark.parametrize("method", ["load_audio", "detect_rake_patterns",
+                                    "generate_tabs", "export_musicxml"])
+@pytest.mark.parametrize("clip", ["ks_22050", "ks_44100"])
+def test_facade_helpers_match_jax(tmp_path, raws, clip, method):
+    """Each helper of the JAX facade gives the JAX facade's output on the
+    same input: load_audio's samples and S_dB equal (the same NumPy code
+    on both sides), the rake mask equal, the tab list equal, the MusicXML
+    bytes equal."""
+    sr = CLIPS[clip][0]
+    jeng = JaxEngine(sample_rate=sr, backend="device")
+    teng = AegisEngine(sample_rate=sr, device="cpu")
+    wav = str(tmp_path / "in.wav")
+    write_wav(wav, CLIPS[clip][1](), sr)
+    (yj, sj), (yt, st) = (e.load_audio(wav, 0.5, 3.5) for e in (jeng, teng))
+    if method == "load_audio":
+        np.testing.assert_array_equal(yt, yj)
+        assert st.shape == sj.shape == (128, 1 + len(yj) // 512)
+        np.testing.assert_array_equal(st, sj)
+    elif method == "detect_rake_patterns":
+        for sens in (0.3, 0.6):
+            np.testing.assert_array_equal(teng.detect_rake_patterns(sj, sens),
+                                          jeng.detect_rake_patterns(sj, sens))
+    else:
+        events = jeng.extract_events(raws(clip)[0], None,
+                                     confidence_threshold=0.5)
+        tabs = teng.generate_tabs(events)
+        assert tabs and tabs == jeng.generate_tabs(events)
+        if method == "export_musicxml":
+            a, b = str(tmp_path / "t.xml"), str(tmp_path / "j.xml")
+            assert teng.export_musicxml(tabs, a) == a
+            jeng.export_musicxml(tabs, b)
+            assert Path(a).read_bytes() == Path(b).read_bytes()
+
+
+def test_int4_transport_matches_jax(tmp_path):
+    """transport="int4": the packed nibbles and scales equal JAX's, the
+    device dequantization equals JAX's bit for bit, run_analyze's rows
+    meet the int8 test's tolerances, the events equal the JAX engine's,
+    and transcribe_folder and `batch --transport int4` run it."""
+    import jax.numpy as jnp
+    from aegis_tpu.core import analyze as janalyze
+    from aegis_tpu.core.events import extract_events_v1 as j_extract
+    from aegis_tpu_torch.core import analyze as tanalyze
+    from aegis_tpu_torch.core.events import extract_events_v1 as t_extract
+
+    y, _ = generate_test_track(sr=22050)
+    y_pad = tanalyze.pad_to_bucket(y)
+    (q, s), (qj, sj) = tanalyze.quantize_pcm4(y_pad), janalyze.quantize_pcm4(y_pad)
+    np.testing.assert_array_equal(q, qj)
+    np.testing.assert_array_equal(s, sj)
+    assert q.dtype == np.uint8 and len(q) == len(y_pad) // 2
+    deq = tanalyze.dequant_transport(torch.from_numpy(q), torch.from_numpy(s))
+    np.testing.assert_array_equal(
+        deq.numpy(), np.asarray(janalyze.dequant_transport(jnp.asarray(qj),
+                                                           jnp.asarray(sj))))
+    audio, cfg = AudioConfig(sample_rate=22050), PyinConfig()
+    ref = jax_run_analyze(y, audio, cfg, transport="int4")
+    got = run_analyze(y, tconfig.AudioConfig(sample_rate=22050),
+                      tconfig.PyinConfig(), transport="int4", device="cpu")
+    for k in _V1_ROWS:
+        if k in ("voiced_flag", "rake_mask"):
+            np.testing.assert_array_equal(got[k], ref[k])
+        elif k == "f0":
+            np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(ref[k]))
+            m = ~np.isnan(ref[k])
+            assert np.max(np.abs(got[k][m] - ref[k][m]) / ref[k][m]) < 1e-4
+        else:
+            np.testing.assert_allclose(got[k], ref[k], atol=1e-4)
+
+    def events(mod_extract, r):
+        return mod_extract(r["rake_mask"], np.nan_to_num(r["f0"]),
+                           r["voiced_flag"], r["voiced_probs"], r["rms"],
+                           22050, 512, confidence_threshold=0.5,
+                           onset_env=r["onset_env"])
+    assert_same_events(events(t_extract, got), events(j_extract, ref))
+
+    write_wav(str(tmp_path / "a.wav"), y, 22050)
+    (wav, mid, n), = transcribe_folder(str(tmp_path), str(tmp_path / "f"),
+                                       transport="int4",
+                                       confidence_threshold=0.5,
+                                       device="cpu")
+    assert n > 0
+    proc = subprocess.run(
+        [sys.executable, "-m", "aegis_tpu_torch", "batch", str(tmp_path),
+         "--output-dir", str(tmp_path / "b"), "--transport", "int4",
+         "--confidence", "0.5", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "b" / "a.mid").read_bytes() == Path(mid).read_bytes()
+
+
 # ------------------------------------------------------------------ guards
 
 # the polyphonic stack: fused, tiles, the folder, live, tabs
@@ -215,14 +314,29 @@ _POLY_PATHS = (
     "for i in range(0, len(yc), 5000):\n"
     "    prt.feed(yc[i:i + 5000])\n"
     "assert prt.poll_events() and prt.finalize()\n"
+    "from aegis_tpu_torch.engine.auto import AegisAutoEngine\n"
+    "aeng = AegisAutoEngine(sample_rate=22050, device='cpu')\n"
+    "assert aeng.extract_events(aeng.analyze(yc), io.BytesIO())\n"
+    "assert transcribe_folder(dp, engine='auto', device='cpu')[0][2] > 0\n"
+    "from aegis_tpu_torch.models.pitchnet import run_analyze_neural_streamed\n"
+    "neng = AegisEngine(sample_rate=22050, device='cpu')\n"
+    "for mode in (False, 'stream'):\n"
+    "    nraw = neng.audio_to_midi(yc, pitch_backend='neural', turbo_mode=mode)\n"
+    "    assert neng.extract_events(nraw, None, confidence_threshold=0.3), mode\n"
+    "assert run_analyze_neural_streamed(yc, 22050, 512, slab_frames=64,\n"
+    "                                   device='cpu')['voiced_flag'].any()\n"
+    "assert AegisFinancialEngine(device='cpu').analyze(\n"
+    "    yc, pitch_backend='neural')['trend'].shape[0] > 0\n"
+    "assert transcribe_folder(dp, pitch_backend='neural', device='cpu')\n"
 )
 
 
 def test_port_never_imports_jax():
     """With jax made unimportable, the port still runs the v1 path fused,
     tiled and streamed, the financial engine, the folder sweep, a live v1
-    and a live financial session, and the polyphonic stack (fused, tiles,
-    folder, live, tabs)."""
+    and a live financial session, the polyphonic stack (fused, tiles,
+    folder, live, tabs), the auto router (facade and folder) and the
+    neural backend (fused, streamed, financial, folder)."""
     code = (
         "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"
@@ -381,7 +495,12 @@ def _copy_filters():
 def _copy_ref():
     for name, calls in {
             "ref.dsp_ref": [("amplitude_to_db", (np.linspace(1e-6, 1, 50),)),
-                            ("hz_to_midi", (np.linspace(80, 900, 40),))],
+                            ("hz_to_midi", (np.linspace(80, 900, 40),)),
+                            ("melspectrogram",
+                             (np.sin(np.arange(9000) * 0.05), 22050, 2048,
+                              512)),
+                            ("frame_signal", (np.arange(3000.0), 256, 64,
+                                              "constant"))],
             "ref.pyin_ref": [("local_transition", (60, 7)),
                              ("local_transition", (9, 7))],
             "ref.trend_ref": [("_savgol_kernel", (11, 3)),
@@ -499,9 +618,66 @@ def _copy_native(monkeypatch):
     np.testing.assert_array_equal(trend_fast.rsi(x), trend_ref.rsi(x))
 
 
+def _copy_quantize_pcm4():
+    from aegis_tpu.core import analyze as janalyze
+    from aegis_tpu_torch.core import analyze as tanalyze
+    assert tanalyze.PCM4_BLOCK == janalyze.PCM4_BLOCK
+    rng = np.random.default_rng(4)
+    y = rng.standard_normal(4096).astype(np.float32) * 0.3
+    y[:128] = 0.0   # a silent block: scale 0
+    for block in (128, 256):
+        for a, b in zip(tanalyze.quantize_pcm4(y, block),
+                        janalyze.quantize_pcm4(y, block)):
+            np.testing.assert_array_equal(a, b)
+    for mod in (tanalyze, janalyze):
+        with pytest.raises(ValueError):
+            mod.quantize_pcm4(y[:100])
+
+
+def _copy_masks_ref():
+    t, j = _port_and_original("ref.masks_ref")
+    rng = np.random.default_rng(5)
+    S = (rng.random((300, 128)) * -90.0).astype(np.float32)
+    S[40] = -3.0             # a broadband burst of one frame (23 ms)
+    S[100:110, :64] = -10.0  # low-heavy frames
+    f0 = np.where(rng.random(300) < 0.7, rng.uniform(40, 400, 300), np.nan)
+    voiced = ~np.isnan(f0)
+    rake = t.detect_rake(S, 512, 22050, 0.6)
+    assert rake.any()
+    np.testing.assert_array_equal(rake, j.detect_rake(S, 512, 22050, 0.6))
+    np.testing.assert_array_equal(t.detect_palm_mute(S, 512, 22050),
+                                  j.detect_palm_mute(S, 512, 22050))
+    np.testing.assert_array_equal(t.enhance_rake(S, 512, 22050, rake),
+                                  j.enhance_rake(S, 512, 22050, rake))
+    for a, b in zip(t.filter_subharmonic(f0, voiced),
+                    j.filter_subharmonic(f0, voiced)):
+        np.testing.assert_array_equal(a, b)
+    assert t.distortion_score(S) == j.distortion_score(S)
+    np.testing.assert_array_equal(t.run_length_keep(rake, 1, 3),
+                                  j.run_length_keep(rake, 1, 3))
+
+
+def _copy_pitchnet_post_ref():
+    t, j = _port_and_original("ref.pitchnet_post_ref")
+    rng = np.random.default_rng(6)
+    voiced = rng.random(80) < 0.6
+    f0 = np.where(voiced, rng.uniform(80, 900, 80), 1.0)
+    np.testing.assert_array_equal(t.smooth_f0_median_ref(f0, voiced),
+                                  j.smooth_f0_median_ref(f0, voiced))
+    env = rng.random(80) * 0.2
+    env[rng.integers(0, 80, 5)] = 1.0
+    pitch = {"f0": np.where(voiced, f0, np.nan), "voiced_flag": voiced,
+             "voiced_probs": np.where(voiced, 0.9, 0.1)}
+    for fps in (43.07, 86.13):
+        a, b = (m.onset_backfill_ref(dict(pitch), env, fps) for m in (t, j))
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
 @pytest.mark.parametrize("what", [
     "config", "filters", "ref", "signal_gen", "io", "midi",
-    "metrics_tempo_harmony", "events_helpers", "native"])
+    "metrics_tempo_harmony", "events_helpers", "native", "quantize_pcm4",
+    "masks_ref", "pitchnet_post_ref"])
 def test_copy_equals_its_original(what, tmp_path, monkeypatch):
     """The port keeps its own copy of each host module it uses; a copy that
     drifts from ``aegis_tpu``'s (other arrays, other MIDI bytes, other

@@ -359,7 +359,13 @@ def test_every_device_argument_defaults_to_the_card():
                 "engine.poly.dispatch_analyze_poly",
                 "engine.poly.AegisPolyEngine",
                 "engine.turbo.run_analyze_poly_turbo",
-                "engine.realtime.StreamingPolyTranscriber"}
+                "engine.realtime.StreamingPolyTranscriber",
+                "engine.auto.AegisAutoEngine",
+                "engine.auto.dispatch_analyze_auto",
+                "models.pitchnet.run_analyze_neural",
+                "models.pitchnet.dispatch_analyze_neural",
+                "models.pitchnet.run_analyze_neural_streamed",
+                "models.pitchnet.default_params"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -372,15 +378,20 @@ def test_every_device_argument_defaults_to_the_card():
     "AegisFinancialEngine", "transcribe_folder", "StreamingTranscriber",
     "resolve_device", "dispatch_analyze_poly", "AegisPolyEngine",
     "run_analyze_poly_turbo", "StreamingPolyTranscriber",
-    "transcribe_folder_poly"])
+    "transcribe_folder_poly", "AegisAutoEngine", "dispatch_analyze_auto",
+    "transcribe_folder_auto", "run_analyze_neural", "dispatch_analyze_neural",
+    "run_analyze_neural_streamed", "transcribe_folder_neural"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
     raises, and none runs the plain versions on the CPU instead."""
     import aegis_tpu_torch
     from aegis_tpu_torch.core import analyze
-    from aegis_tpu_torch.engine import (engine, financial, folder, poly,
-                                        realtime, turbo)
+    from aegis_tpu_torch.engine import (auto, engine, financial, folder,
+                                        poly, realtime, turbo)
+    from aegis_tpu_torch.models import pitchnet
+    cpu_auto = auto.AegisAutoEngine(sample_rate=SR, device="cpu")
+    net = pitchnet.default_params("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     y = np.zeros(4096, np.float32)
     audio = TAudioConfig(sample_rate=SR)
@@ -405,6 +416,20 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
             lambda: realtime.StreamingPolyTranscriber(sample_rate=SR),
         "transcribe_folder_poly":
             lambda: folder.transcribe_folder(str(tmp_path), engine="poly"),
+        "AegisAutoEngine": lambda: auto.AegisAutoEngine(sample_rate=SR),
+        "dispatch_analyze_auto": lambda: auto.dispatch_analyze_auto(y,
+                                                                    cpu_auto),
+        "transcribe_folder_auto":
+            lambda: folder.transcribe_folder(str(tmp_path), engine="auto"),
+        "run_analyze_neural": lambda: pitchnet.run_analyze_neural(y, SR, 512,
+                                                                  net),
+        "dispatch_analyze_neural":
+            lambda: pitchnet.dispatch_analyze_neural(y, SR, 512, net),
+        "run_analyze_neural_streamed":
+            lambda: pitchnet.run_analyze_neural_streamed(y, SR, 512, net),
+        "transcribe_folder_neural":
+            lambda: folder.transcribe_folder(str(tmp_path),
+                                             pitch_backend="neural"),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
