@@ -13,6 +13,9 @@ versions):
   batch       every matching file of a folder -> MIDI (v1, financial,
               poly, auto)
   stream      live: s16le PCM on stdin -> JSON event lines, MIDI at EOF
+  stems       WAV/MP3 -> the guitar-ish stem (Demucs when on PATH, else
+              HPSS on the device); prints its path, exits 2 when that is
+              the input itself
 """
 
 from __future__ import annotations
@@ -286,6 +289,15 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def cmd_stems(args) -> int:
+    from aegis_tpu_torch.synth.stems import separate_stems
+
+    path = separate_stems(args.input, args.output_dir, method=args.method,
+                          device=args.device)
+    print(path)
+    return 0 if path != args.input else 2
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="aegis_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -387,6 +399,14 @@ def main(argv=None) -> int:
                         "v1 27; financial uses its named-track encoder)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_stream)
+
+    p = sub.add_parser("stems")
+    p.add_argument("input")
+    p.add_argument("output_dir")
+    p.add_argument("--method", default="auto",
+                   choices=["auto", "demucs", "hpss"])
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_stems)
 
     args = ap.parse_args(argv)
     if getattr(args, "end", None) is not None and args.end <= args.start:

@@ -19,8 +19,8 @@ fused program with a log line, as the JAX engine does.
 raw_data keeps the JAX engine's schema: {rake_mask, f0, voiced_flag,
 voiced_probs, rms, y, onset_env, mel_db, pitch_backend}, f0 zero-filled on
 unvoiced frames.  The helpers of the JAX facade are here too:
-``load_audio``, ``detect_rake_patterns``, ``generate_tabs``,
-``export_musicxml`` (``separate_stems`` is not ported).
+``load_audio``, ``detect_rake_patterns``, ``separate_stems``,
+``generate_tabs``, ``export_musicxml``.
 
 There is no fallback: a device failure raises.
 """
@@ -282,6 +282,13 @@ class AegisEngine:
         from aegis_tpu_torch.ref.masks_ref import detect_rake
 
         return detect_rake(S_dB.T, self.hop_length, self.sr, rake_sensitivity)
+
+    def separate_stems(self, input_wav: str, output_dir: str) -> str:
+        """The guitar-ish stem of a file (synth/stems.py, method "auto"),
+        HPSS on the engine's device where Demucs is missing."""
+        from aegis_tpu_torch.synth.stems import separate_stems
+
+        return separate_stems(input_wav, output_dir, device=self.device)
 
     def generate_tabs(self, events: List[dict]) -> List[dict]:
         from aegis_tpu_torch.midi.tabs import generate_tabs

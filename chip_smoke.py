@@ -6,8 +6,9 @@
 Drives the port's main paths, the v1 WAV -> MIDI transcription
 (``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), the
 financial (v2) engine, the tiled, streamed and folder-batch modes, the
-live transcribers, the CUDA kernels, the polyphonic stack, the auto router
-and the neural (PitchNet) backend, in twenty-one phases; each raises on
+live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
+the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain
+and the self-verification loops, in twenty-four phases; each raises on
 failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
@@ -133,6 +134,29 @@ failure:
                and audio_to_midi at both rates, the 10-minute stream, the
                neural folder; a torch.profiler pass over a fused auto and a
                fused neural analyze; the kernels at the auto 44 100 Hz shape.
+ 22. hpss    — hpss on the card: the 60 s bench track at 22 050 Hz (one
+               program), at 44 100 Hz (two slabs), the 10-minute track
+               (seven slabs); each within 1e-4 of the port's CPU run, the
+               60 s 22 050 Hz one also of the float64 oracle;
+               AegisEngine.separate_stems and the stems command (exit 0)
+               write other.wav / drums.wav; warm medians of 5 of each size
+               and a torch.profiler pass over the 60 s call.
+ 23. synth   — synthesize_midi_adsr on the 60 s bench track's notes at
+               44 100 Hz against the CPU (render within 1e-5, envelope
+               segment lengths equal), then apply_effect_chain of every
+               EFFECT_PRESETS entry on that render (1e-4); their times.
+ 24. verify  — the self-verification loops on the card's v1 engine at
+               44 100 Hz with the FluidSynth binary missing (the ADSR synth
+               renders, and the phase says so): reverse_analysis (metrics
+               equal to the CPU run, note accuracy at least the JAX
+               engine's, one launch of each Viterbi kernel, both kernels
+               identical to their plain versions on its observations),
+               learning_loop on "full_fx" (one launch of each),
+               auto_match_parameters (the CPU twin on the first 15 s: the
+               same pick, score within 1e-5), optimize_all_notes (the same
+               parameters per note as the CPU on the events of the first
+               15 s), verify_technique_by_audio_matching (the same
+               decisions as the CPU); the loops' times.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -182,7 +206,8 @@ from aegis_tpu_torch.engine.poly import (AegisPolyEngine,
 from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
                                              StreamingTranscriber)
 from aegis_tpu_torch.io import write_wav
-from aegis_tpu_torch.midi import midi_to_notes
+from aegis_tpu_torch.midi import (MidiFile, MidiMessage, MidiTrack,
+                                  midi_to_notes, second2tick)
 from aegis_tpu_torch.models.pitchnet import (run_analyze_neural,
                                              run_analyze_neural_streamed)
 from aegis_tpu_torch.ref.poly_ref import peel_voices_ref
@@ -1690,6 +1715,338 @@ def phase_times_auto_neural(dev, tracks, y10, auto_folder: str,
     return row
 
 
+# --------------------------------------------------------------------------
+# HPSS stems, the ADSR synth and effect chain, the verification loops
+# --------------------------------------------------------------------------
+
+def notes_midi(notes) -> bytes:
+    """SMF bytes of a note list [{note, start, end}] in seconds (velocity
+    100, the default 120 BPM / 480 ticks a beat), note-offs before note-ons
+    on the same tick."""
+    mid = MidiFile()
+    track = MidiTrack()
+    mid.tracks.append(track)
+    marks = sorted([(int(round(second2tick(n["start"]))), 1, n["note"])
+                    for n in notes]
+                   + [(int(round(second2tick(n["end"]))), 0, n["note"])
+                      for n in notes])
+    last = 0
+    for tick, on, note in marks:
+        track.append(MidiMessage("note_on" if on else "note_off", note=note,
+                                 velocity=100 if on else 0, time=tick - last))
+        last = tick
+    return mid.save(None)
+
+
+# The JAX package's v1 engine on the CPU (JAX_PLATFORMS=cpu), 44 100 Hz:
+# reverse_analysis of notes_midi(the 60 s bench track's truth) with the
+# FluidSynth binary missing (the ADSR synth renders), and learning_loop on
+# the same MIDI with preset "full_fx" (5 iterations, seed 0).  The port on
+# the card must reach this note accuracy.
+JAX_CPU_REVERSE = {"original_notes": 150, "reversed_notes": 143,
+                   "note_accuracy": 0.92}
+JAX_CPU_LOOP_BEST_OVERALL = 0.9083166666666667
+# A CPU twin of a loop that would take more than about a minute at 60 s runs
+# on the track's first CPU_TWIN_S seconds, beside the card's run of the same
+# cut (the card's 60 s run is timed apart).
+CPU_TWIN_S = 15.0
+
+
+def stem_err(a, b) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def phase_hpss(dev, tracks, y10, folder: str) -> None:
+    """HPSS on the card at the bench lengths: 60 s at 22 050 Hz (one
+    program), 60 s at 44 100 Hz (two slabs), 10 minutes at 22 050 Hz (seven
+    slabs); each within 1e-4 of the port's CPU run, the 60 s 22 050 Hz one
+    also of the float64 oracle; AegisEngine.separate_stems and the stems
+    command write the two stems; warm medians of 5 of each size; a
+    torch.profiler pass over the 60 s call."""
+    from aegis_tpu_torch.core import hpss as H
+    from aegis_tpu_torch.core.analyze import quantize_pcm16
+    from aegis_tpu_torch.ref.hpss_ref import hpss_ref
+
+    halo = 8 * HOP + 2 * 2048
+    step = ((H._SLAB_SAMPLES - 2 * halo) // HOP) * HOP
+    cases = [("bench60", 22050, tracks[22050][0], 1),
+             ("bench60", 44100, tracks[44100][0], 2),
+             ("bench600", 22050, y10, 7)]
+    for name, sr, y, want_slabs in cases:
+        slabs = 1 if len(y) <= H._SLAB_SAMPLES else -(-len(y) // step)
+        card = H.hpss(y, device=dev)
+        cpu = H.hpss(y, device="cpu")
+        row = {"phase": "hpss", "track": name, "sr": sr,
+               "samples": len(y), "slabs": slabs,
+               "frames": 1 + len(y) // HOP,
+               "max_abs_err_vs_cpu": stem_err(card, cpu),
+               "finite": bool(all(np.isfinite(s).all() for s in card))}
+        if name == "bench60" and sr == 22050:
+            y16, scale = quantize_pcm16(y)
+            row["max_abs_err_vs_oracle"] = stem_err(
+                card, hpss_ref(y16.astype(np.float32) * scale))
+        row["median_ms"] = cuda_ms(lambda: H.hpss(y, device=dev))
+        row["card"] = CARD["nvidia_smi"]
+        emit(row)
+        if (slabs != want_slabs or not row["finite"]
+                or any(s.shape != y.shape for s in card)):
+            raise AssertionError(f"hpss {name} @ {sr}: {row}")
+        if max(row["max_abs_err_vs_cpu"],
+               row.get("max_abs_err_vs_oracle", 0.0)) > 1e-4:
+            raise AssertionError(f"hpss {name} @ {sr}: above 1e-4: {row}")
+
+    y = tracks[22050][0]
+    emit(profile_row("hpss_60s_22050", lambda: H.hpss(y, device=dev), 22050))
+
+    wav = os.path.join(folder, "bench60.wav")
+    write_wav(wav, y, 22050)
+    eng = AegisEngine(sample_rate=22050, device=dev)
+    paths = {"separate_stems": eng.separate_stems(wav, os.path.join(folder,
+                                                                    "eng"))}
+    proc = subprocess.run(
+        [sys.executable, "-m", "aegis_tpu_torch", "stems", wav,
+         os.path.join(folder, "cli"), "--method", "hpss"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    paths["stems_command"] = proc.stdout.strip().splitlines()[-1] \
+        if proc.stdout.strip() else ""
+    row = {"phase": "hpss_stems", "stems_command_rc": proc.returncode}
+    for how, path in paths.items():
+        stems = [os.path.join(os.path.dirname(path), f)
+                 for f in ("other.wav", "drums.wav")]
+        row[how] = {"other": path, "written": [os.path.isfile(p)
+                                               for p in stems]}
+    emit(row)
+    if proc.returncode != 0 or not all(
+            all(row[how]["written"]) and row[how]["other"].endswith(
+                "other.wav") for how in paths):
+        raise AssertionError(f"hpss stems: {row} {proc.stderr[-2000:]}")
+
+
+def phase_synth(dev, midi: bytes) -> np.ndarray:
+    """The 60 s bench track's MIDI through synthesize_midi_adsr at 44 100 Hz
+    on the card against the CPU (WAV within one int16 step; the float render
+    within 1e-5, the envelope segment lengths equal), then every effect
+    preset on that render against the CPU (1e-4); times of each.  Returns
+    the card's float render."""
+    from aegis_tpu_torch.synth import adsr
+    from aegis_tpu_torch.synth.effects import (EFFECT_PRESETS,
+                                               apply_effect_chain)
+    from aegis_tpu_torch.io import read_wav
+
+    sr = 44100
+    notes = midi_to_notes(midi)
+    p = adsr.GUITAR_ADSR_PRESETS["electric_clean"]
+    kw = dict(attack_ms=p["attack_ms"], decay_ms=p["decay_ms"],
+              sustain_level=p["sustain_level"], release_ms=p["release_ms"],
+              waveform=p["waveform"])
+    wavs = {d: adsr.synthesize_midi_adsr(midi, sample_rate=sr, device=d)
+            for d in (dev, "cpu")}
+    (a, ra), (b, rb) = (read_wav(w) for w in wavs.values())
+    x = adsr.synthesize_note_arrays(notes, sr, device=dev, **kw)
+    x_cpu = adsr.synthesize_note_arrays(notes, sr, device="cpu", **kw)
+    ms = np.linspace(0.5, 1000.0, 20001, dtype=np.float32)
+    seg_equal = all(
+        torch.equal(s.cpu(), c) for s, c in zip(
+            adsr.segment_lengths(*(torch.from_numpy(ms).to(dev),) * 3, sr),
+            adsr.segment_lengths(*(torch.from_numpy(ms),) * 3, sr)))
+    row = {"phase": "synth", "notes": len(notes), "sr": sr,
+           "seconds": len(x) / sr, "wav_rates": [ra, rb],
+           "wav_max_abs_err_vs_cpu": float(np.abs(a - b).max()),
+           "render_max_abs_err_vs_cpu": float(np.abs(x - x_cpu).max()),
+           "segment_lengths_equal_cpu": seg_equal,
+           "synthesize_midi_adsr_ms": cuda_ms(lambda: adsr.synthesize_midi_adsr(
+               midi, sample_rate=sr, device=dev)),
+           "card": CARD["nvidia_smi"]}
+    emit(row)
+    if (row["wav_max_abs_err_vs_cpu"] > 1.0 / 32767 + 1e-9
+            or row["render_max_abs_err_vs_cpu"] > 1e-5 or not seg_equal
+            or ra != sr or not np.isfinite(x).all()):
+        raise AssertionError(f"synth: {row}")
+    for preset, cfg in EFFECT_PRESETS.items():
+        got = apply_effect_chain(x, cfg, sr, device=dev)
+        want = apply_effect_chain(x, cfg, sr, device="cpu")
+        row = {"phase": "effects", "preset": preset,
+               "effects": [name for name, _ in cfg],
+               "max_abs_err_vs_cpu": float(np.abs(got - want).max()),
+               "median_ms": cuda_ms(lambda: apply_effect_chain(
+                   x, cfg, sr, device=dev)),
+               "card": CARD["nvidia_smi"]}
+        emit(row)
+        if got.shape != x.shape or row["max_abs_err_vs_cpu"] > 1e-4:
+            raise AssertionError(f"effects {preset}: {row}")
+    return x
+
+
+def phase_verify(dev, tracks, midi: bytes, errs: dict, total: dict,
+                 per_call: dict) -> dict:
+    """The self-verification loops on the card's v1 engine at 44 100 Hz,
+    each against the port's CPU run; the ADSR synth renders (no FluidSynth
+    binary).  Returns the Viterbi kernels' times at the reverse-analysis
+    shape."""
+    from aegis_tpu_torch.io import read_wav
+    from aegis_tpu_torch.io.audio import to_mono
+    from aegis_tpu_torch.synth import adsr, fluidsynth
+    from aegis_tpu_torch.verify.auto_match import auto_match_parameters
+    from aegis_tpu_torch.verify.effect_loop import learning_loop
+    from aegis_tpu_torch.verify.per_note import optimize_all_notes
+    from aegis_tpu_torch.verify.reverse import reverse_analysis
+    from aegis_tpu_torch.verify.technique import (
+        verify_technique_by_audio_matching)
+
+    sr = 44100
+    os.environ["AEGIS_FLUIDSYNTH_BIN"] = os.path.join(
+        tempfile.gettempdir(), "no-fluidsynth-here")
+    fluidsynth._singleton = None
+    renders = []
+    real_render = adsr.synthesize_midi_adsr
+
+    def counted_render(*a, **k):
+        renders.append(str(k.get("device")))
+        return real_render(*a, **k)
+
+    adsr.synthesize_midi_adsr = counted_render
+    try:
+        eng = AegisEngine(sample_rate=sr, device=dev)
+        cpu = AegisEngine(sample_rate=sr, device="cpu")
+
+        # reverse analysis: MIDI -> ADSR -> v1 engine -> compare
+        res, counts, batch = run_counted(
+            lambda: reverse_analysis(midi, eng, sample_rate=sr))
+        expect_launches("reverse_analysis", counts, batch, 1, 1)
+        add_counts(total, counts)
+        per_call["reverse60_44100"] = counts
+        ref = reverse_analysis(midi, cpu, sample_rate=sr)
+        keys = [k for k in ref if k not in ("reversed_midi",
+                                            "reversed_events")]
+        row = {"phase": "verify", "loop": "reverse_analysis", "sr": sr,
+               **{k: res[k] for k in keys},
+               "metrics_equal_cpu": all(
+                   res[k] == ref[k] or (res[k] != res[k] and ref[k] != ref[k])
+                   for k in keys),
+               "events_equal_cpu": [(e["note"], e["start"], e["end"])
+                                    for e in res["reversed_events"]]
+               == [(e["note"], e["start"], e["end"])
+                   for e in ref["reversed_events"]],
+               "jax_cpu": JAX_CPU_REVERSE, "launches": counts,
+               "synthesizer": ("fluidsynth"
+                               if fluidsynth.get_synthesizer().is_available()
+                               else "adsr"),
+               "adsr_renders": renders[:]}
+        emit(row)
+        if (not row["metrics_equal_cpu"] or row["synthesizer"] != "adsr"
+                or str(dev) not in renders
+                or res["note_accuracy"] < JAX_CPU_REVERSE["note_accuracy"]):
+            raise AssertionError(f"reverse_analysis: {row}")
+        audio, _ = read_wav(real_render(midi, sample_rate=sr, device=dev))
+        obs, vprob, tables = real_obs(to_mono(audio), sr, dev)
+        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
+        compare_kernels("reverse60_44100", lo_v, lo_u, tables.band,
+                        tables.band_tab, tables.half_width, 1.0, errs)
+        kernel_row = time_kernels(obs[None], vprob[None], tables, False)
+        emit({"phase": "times", "what": "viterbi_reverse", "sr": sr,
+              **kernel_row["shape"], "median_ms": kernel_row,
+              "card": CARD["nvidia_smi"]})
+
+        # the effect learning loop on one preset
+        loop, counts, batch = run_counted(lambda: learning_loop(
+            midi, eng, preset="full_fx", sample_rate=sr))
+        expect_launches("learning_loop", counts, batch, 1, 1)
+        add_counts(total, counts)
+        loop_cpu = learning_loop(midi, cpu, preset="full_fx", sample_rate=sr)
+        row = {"phase": "verify", "loop": "learning_loop",
+               "preset": "full_fx", "best_accuracy": loop["best_accuracy"],
+               "best_params": loop["best_params"],
+               "iterations": len(loop["history"]),
+               "equal_cpu": loop == loop_cpu,
+               "cpu_best_overall": loop_cpu["best_accuracy"]["overall"],
+               "jax_cpu_best_overall": JAX_CPU_LOOP_BEST_OVERALL,
+               "launches": counts}
+        emit(row)
+        # the chain's output is within 1e-4 of the CPU's (phase 23), which
+        # the int8 transport may round apart on a few samples
+        if abs(row["best_accuracy"]["overall"]
+               - row["cpu_best_overall"]) > 0.01:
+            raise AssertionError(f"learning_loop: {row} / {loop_cpu}")
+
+        # auto-match: the card at 60 s; card and CPU on the first 15 s
+        y = tracks[sr][0]
+        raw = eng.audio_to_midi(y)
+        am = auto_match_parameters(y, eng, raw)
+        y15 = y[: int(CPU_TWIN_S * sr)]
+        raw15 = eng.audio_to_midi(y15)
+        am15 = auto_match_parameters(y15, eng, raw15)
+        am15_cpu = auto_match_parameters(y15, cpu, raw15)
+        picks = [{k: v for k, v in d.items() if k != "score"}
+                 for d in (am15, am15_cpu)]
+        row = {"phase": "verify", "loop": "auto_match_parameters",
+               "card_60s": am, "card_15s": am15, "cpu_15s": am15_cpu,
+               "cpu_twin": f"first {CPU_TWIN_S:.0f} s (the CPU run of the 60 s "
+                           "call takes more than a minute)",
+               "same_pick": picks[0] == picks[1],
+               "score_abs_err": abs(am15["score"] - am15_cpu["score"])}
+        emit(row)
+        if am is None or not row["same_pick"] or row["score_abs_err"] > 1e-5:
+            raise AssertionError(f"auto_match: {row}")
+
+        # per-note ADSR optimization over the track's events
+        events = eng.extract_events(raw, None, confidence_threshold=0.5,
+                                    sustain_ms=150)
+        opt = optimize_all_notes(y, events, sr, HOP, device=dev)
+        ev15 = [e for e in events if e["end"] * HOP / sr < CPU_TWIN_S]
+        opt15 = optimize_all_notes(y, ev15, sr, HOP, device=dev)
+        opt15_cpu = optimize_all_notes(y, ev15, sr, HOP, device="cpu")
+        differ = [(a, b) for a, b in zip(opt15, opt15_cpu) if a != b]
+        row = {"phase": "verify", "loop": "optimize_all_notes",
+               "events": len(events), "combos": 27 * len(events),
+               "events_15s": len(ev15),
+               "cpu_twin": f"events ending in the first {CPU_TWIN_S:.0f} s",
+               "params_equal_cpu": not differ, "differ": differ[:3],
+               "finite": all(0.0 <= r["similarity_score"] <= 1.0
+                             for r in opt)}
+        emit(row)
+        if differ or len(opt) != len(events) or not row["finite"]:
+            raise AssertionError(f"optimize_all_notes: {row}")
+
+        # technique verification: bends, vibrato, hammer-ons, pull-offs
+        techs = ("bend", "hammer_on", "vibrato", "pull_off", None)
+        tev = [dict(e, technique=techs[i % len(techs)])
+               for i, e in enumerate(events)]
+        ver = verify_technique_by_audio_matching(y, tev, sr, HOP, device=dev)
+        ver_cpu = verify_technique_by_audio_matching(y, tev, sr, HOP,
+                                                     device="cpu")
+        decisions = [(e["technique"], e.get("technique_verified"))
+                     for e in ver]
+        row = {"phase": "verify", "loop": "verify_technique_by_audio_matching",
+               "events": len(tev),
+               "checked": sum(e.get("technique") is not None for e in tev),
+               "kept": sum(1 for d in decisions if d[1]),
+               "decisions_equal_cpu": decisions == [
+                   (e["technique"], e.get("technique_verified"))
+                   for e in ver_cpu]}
+        emit(row)
+        if not row["decisions_equal_cpu"]:
+            raise AssertionError(f"technique: {row}")
+
+        times = {
+            "reverse_analysis": wall_ms(
+                lambda: reverse_analysis(midi, eng, sample_rate=sr)),
+            "learning_loop_full_fx": wall_ms(lambda: learning_loop(
+                midi, eng, preset="full_fx", sample_rate=sr)),
+            "auto_match_parameters_60s": wall_ms(
+                lambda: auto_match_parameters(y, eng, raw)),
+            "optimize_all_notes_60s": wall_ms(
+                lambda: optimize_all_notes(y, events, sr, HOP, device=dev)),
+            "verify_technique_60s": wall_ms(
+                lambda: verify_technique_by_audio_matching(
+                    y, tev, sr, HOP, device=dev))}
+        emit({"phase": "times", "what": "verify_loops_warm_median_of_5_ms",
+              "sr": sr, "median_ms": times, "card": CARD["nvidia_smi"]})
+    finally:
+        adsr.synthesize_midi_adsr = real_render
+    return kernel_row
+
+
 def add_counts(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -1772,6 +2129,15 @@ def main() -> int:
               neural_folder)
         auto_ms = timed("times_auto_neural", phase_times_auto_neural, dev,
                         tracks, y10, auto_folder, neural_folder, auto_obs)
+
+    # HPSS stems, the ADSR synth and effect chain, the verification loops
+    # (no hand kernel of their own; the loops' v1 engine launches both)
+    with tempfile.TemporaryDirectory() as stems_folder:
+        timed("hpss", phase_hpss, dev, tracks, y10, stems_folder)
+    midi44 = notes_midi(tracks[44100][1])
+    timed("synth", phase_synth, dev, midi44)
+    reverse_ms = timed("verify", phase_verify, dev, tracks, midi44, errs,
+                       total, per_call)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -1789,6 +2155,8 @@ def main() -> int:
          per_call["stream_slab_22050"], tiles_ms["stream_slab_22050"]),
         ("AegisAutoEngine.analyze, 60 s at 44 100 Hz, hop 1024",
          per_call["auto60_44100"], auto_ms),
+        ("reverse_analysis, 60 s at 44 100 Hz", per_call["reverse60_44100"],
+         reverse_ms),
     ] + [
         (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
          "launch", per_call[("live", sr, tile, halo)],

@@ -374,3 +374,67 @@ def test_kernels_at_the_auto_44100_shape(cuda):
     assert pyin_cuda.LAUNCHES == {"viterbi_fwd": 1, "viterbi_back": 1}
     assert pyin_cuda.LAST_BATCH == {"viterbi_fwd": 1, "viterbi_back": 1}
     assert a["v1"]["f0"].shape == (1 + len(y) // 1024,)
+
+
+# ------------------------------- HPSS, the ADSR synth and the effect chain
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slabs", [False, True])
+def test_hpss_on_the_card_equals_the_cpu(cuda, slabs, monkeypatch):
+    """HPSS on the card against the same wrapper on the CPU, within 1e-4
+    (max abs), one program and in slabs."""
+    from aegis_tpu_torch.core import hpss as H
+    from aegis_tpu_torch.tools.signal_gen import generate_bench_track
+
+    y = generate_bench_track(8.0, sr=22050)
+    if slabs:
+        monkeypatch.setattr(H, "_SLAB_SAMPLES", 1 << 16)
+    for a, b in zip(H.hpss(y, device=cuda), H.hpss(y, device="cpu")):
+        assert a.shape == y.shape and np.abs(a - b).max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [22050, 44100])
+def test_render_notes_on_the_card_equals_the_cpu(cuda, sr):
+    """The batched render and mixdown on the card within 1e-5 of the CPU,
+    with equal integer segment lengths."""
+    from aegis_tpu_torch.synth import adsr
+
+    rng = np.random.default_rng(sr)
+    N, max_len, total = 40, 1 << 15, 1 << 20
+    args = (rng.uniform(80, 3000, N).astype(np.float32),
+            rng.integers(0, total, N).astype(np.int32),
+            rng.integers(100, max_len - 1, N).astype(np.int32),
+            rng.uniform(0, 127, N).astype(np.float32),
+            rng.uniform(1, 400, N).astype(np.float32),
+            rng.uniform(1, 900, N).astype(np.float32),
+            rng.uniform(0.05, 1, N).astype(np.float32),
+            rng.uniform(5, 900, N).astype(np.float32),
+            rng.integers(0, 4, N).astype(np.int32))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.from_numpy(a).to(dev) for a in args]
+        out[dev.type] = (adsr.render_notes(*t, sr, max_len, total).cpu(),
+                         [s.cpu() for s in adsr.segment_lengths(
+                             t[4], t[5], t[7], sr)])
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max() <= 1e-5
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["light_overdrive", "ambient",
+                                    "chorus_clean", "full_fx"])
+def test_effect_chain_on_the_card_equals_the_cpu(cuda, preset):
+    """Every effect on the card within 1e-4 of the CPU; the chorus picks the
+    same source samples on both."""
+    from aegis_tpu_torch.synth.effects import (EFFECT_PRESETS,
+                                               apply_effect_chain)
+    from aegis_tpu_torch.synth.adsr import synthesize_note_arrays
+
+    notes = [{"note": 40 + (7 * k) % 36, "start": 0.3 * k,
+              "end": 0.3 * k + 0.5, "velocity": 70 + k} for k in range(30)]
+    x = synthesize_note_arrays(notes, 44100, device="cpu")
+    a = apply_effect_chain(x, EFFECT_PRESETS[preset], 44100, device=cuda)
+    b = apply_effect_chain(x, EFFECT_PRESETS[preset], 44100, device="cpu")
+    assert a.shape == x.shape and np.abs(a - b).max() <= 1e-4

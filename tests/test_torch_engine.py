@@ -130,12 +130,11 @@ def test_raw_data_roundtrip_and_bpm(tmp_path, raws):
 
 
 def test_unported_modes_raise(tmp_path):
-    """What stays unported or unknown raises: the facade has no
-    ``separate_stems`` (it comes with HPSS), an unknown pitch backend, a
-    pitch backend on the engines that embed their own, an unknown
-    transport, an unknown turbo mode.  The poly and auto folder engines,
-    the neural backend and the polyphonic live transcriber are ported:
-    they run."""
+    """What is unknown raises: an unknown pitch backend, a pitch backend on
+    the engines that embed their own, an unknown transport, an unknown
+    turbo mode.  The poly and auto folder engines, the neural backend, the
+    polyphonic live transcriber and the facade's ``separate_stems`` are
+    ported: they run or exist."""
     from aegis_tpu_torch.engine.realtime import StreamingPolyTranscriber
     from aegis_tpu_torch.tools.signal_gen import generate_chord_progression
     y = np.zeros(22050, np.float32)
@@ -143,7 +142,7 @@ def test_unported_modes_raise(tmp_path):
     rt.feed(y)
     assert rt.frames_analyzed > 0 and rt.finalize() == []
     eng = AegisEngine(sample_rate=22050, device="cpu")
-    assert not hasattr(eng, "separate_stems")
+    assert callable(getattr(eng, "separate_stems"))
     assert hasattr(JaxEngine, "separate_stems")
     with pytest.raises(ValueError):
         eng.audio_to_midi(y, pitch_backend="bogus")
@@ -199,16 +198,25 @@ def test_cli_transcribe(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "events ->" in proc.stdout
     assert {40, 45, 50} <= {n["note"] for n in midi_to_notes(str(mid))}
+    # the stems command: the harmonic stem's path, exit code 0
+    proc = subprocess.run(
+        [sys.executable, "-m", "aegis_tpu_torch", "stems", str(wav),
+         str(tmp_path / "stems"), "--method", "hpss", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert Path(proc.stdout.strip().splitlines()[-1]).is_file()
 
 
 @pytest.mark.parametrize("method", ["load_audio", "detect_rake_patterns",
-                                    "generate_tabs", "export_musicxml"])
+                                    "generate_tabs", "export_musicxml",
+                                    "separate_stems"])
 @pytest.mark.parametrize("clip", ["ks_22050", "ks_44100"])
-def test_facade_helpers_match_jax(tmp_path, raws, clip, method):
+def test_facade_helpers_match_jax(tmp_path, monkeypatch, raws, clip, method):
     """Each helper of the JAX facade gives the JAX facade's output on the
     same input: load_audio's samples and S_dB equal (the same NumPy code
     on both sides), the rake mask equal, the tab list equal, the MusicXML
-    bytes equal."""
+    bytes equal, the HPSS stems within one int16 step."""
     sr = CLIPS[clip][0]
     jeng = JaxEngine(sample_rate=sr, backend="device")
     teng = AegisEngine(sample_rate=sr, device="cpu")
@@ -219,6 +227,16 @@ def test_facade_helpers_match_jax(tmp_path, raws, clip, method):
         np.testing.assert_array_equal(yt, yj)
         assert st.shape == sj.shape == (128, 1 + len(yj) // 512)
         np.testing.assert_array_equal(st, sj)
+    elif method == "separate_stems":
+        from aegis_tpu.synth import stems as jstems
+        from aegis_tpu_torch.io.wav import read_wav
+        from aegis_tpu_torch.synth import stems as tstems
+        for mod in (jstems, tstems):
+            monkeypatch.setattr(mod, "find_demucs", lambda: None)
+        a = teng.separate_stems(wav, str(tmp_path / "t"))
+        b = jeng.separate_stems(wav, str(tmp_path / "j"))
+        assert a.endswith("other.wav") and b.endswith("other.wav")
+        assert np.abs(read_wav(a)[0] - read_wav(b)[0]).max() <= 1.0 / 32767
     elif method == "detect_rake_patterns":
         for sens in (0.3, 0.6):
             np.testing.assert_array_equal(teng.detect_rake_patterns(sj, sens),
@@ -328,6 +346,55 @@ _POLY_PATHS = (
     "assert AegisFinancialEngine(device='cpu').analyze(\n"
     "    yc, pitch_backend='neural')['trend'].shape[0] > 0\n"
     "assert transcribe_folder(dp, pitch_backend='neural', device='cpu')\n"
+) + (
+    # HPSS stems, the ADSR synth and effect chain, the verification loops
+    "from aegis_tpu_torch.core.hpss import hpss, hpss_program\n"
+    "from aegis_tpu_torch.synth.stems import separate_stems, separate_hpss\n"
+    "from aegis_tpu_torch.synth.adsr import (synthesize_note_arrays,\n"
+    "    midi_to_wav_adsr, synthesize_midi_adsr)\n"
+    "from aegis_tpu_torch.synth.fluidsynth import synthesize_midi\n"
+    "from aegis_tpu_torch.synth.effects import apply_effect_chain\n"
+    "from aegis_tpu_torch.verify.similarity import (audio_similarity,\n"
+    "    note_slice_similarity)\n"
+    "from aegis_tpu_torch.verify.reverse import reverse_analysis\n"
+    "from aegis_tpu_torch.verify.auto_match import auto_match_parameters\n"
+    "from aegis_tpu_torch.verify.per_note import (optimize_all_notes,\n"
+    "    synthesize_with_per_note_params)\n"
+    "from aegis_tpu_torch.verify.technique import (\n"
+    "    verify_technique_by_audio_matching)\n"
+    "from aegis_tpu_torch.verify.effect_loop import learning_loop\n"
+    "from aegis_tpu_torch.viz import render_piano_roll\n"
+    "from aegis_tpu_torch.midi import events_to_midi\n"
+    "ys = yc[:22050]\n"
+    "assert hpss(ys, device='cpu')[0].shape == ys.shape\n"
+    "assert hpss_program(ys, device='cpu').shape == (2, len(ys))\n"
+    "assert separate_hpss(os.path.join(dp, 'c.wav'), dp, device='cpu')\n"
+    "assert separate_stems(os.path.join(dp, 'c.wav'), dp, method='hpss',\n"
+    "                      device='cpu')\n"
+    "assert neng.separate_stems(os.path.join(dp, 'c.wav'), dp)\n"
+    "seng = AegisEngine(sample_rate=22050, device='cpu')\n"
+    "sraw = seng.audio_to_midi(ys)\n"
+    "sev = seng.extract_events(sraw, None, confidence_threshold=0.3)\n"
+    "smid = events_to_midi(sev, 22050, 512, output=None)\n"
+    "notes = [{'note': 60, 'start': 0.0, 'end': 0.4, 'velocity': 90}]\n"
+    "assert synthesize_note_arrays(notes, 22050, device='cpu').any()\n"
+    "for fn in (midi_to_wav_adsr, synthesize_midi_adsr, synthesize_midi):\n"
+    "    assert fn(smid, sample_rate=22050, device='cpu')[:4] == b'RIFF'\n"
+    "assert apply_effect_chain(ys, [('chorus', {}), ('reverb', {})],\n"
+    "                          sr=22050, device='cpu').shape == ys.shape\n"
+    "assert audio_similarity(ys, ys, 22050, device='cpu') > 0.99\n"
+    "assert note_slice_similarity(ys[None, :4096], ys[None, :4096], 22050,\n"
+    "                             device='cpu').shape == (1,)\n"
+    "assert reverse_analysis(smid, seng, sample_rate=22050) is not None\n"
+    "assert learning_loop(smid, seng, preset='full_fx', max_iterations=1,\n"
+    "                     sample_rate=22050)['history']\n"
+    "assert auto_match_parameters(ys, seng, sraw) is not None\n"
+    "opt = optimize_all_notes(ys, sev[:2], 22050, 512, device='cpu')\n"
+    "assert synthesize_with_per_note_params(sev[:2], opt, 22050, 512,\n"
+    "                                       device='cpu').any()\n"
+    "assert verify_technique_by_audio_matching(\n"
+    "    ys, [dict(sev[0], technique='bend')], 22050, 512, device='cpu')\n"
+    "assert '<audio' in render_piano_roll(smid, offline=True, device='cpu')\n"
 )
 
 

@@ -365,7 +365,20 @@ def test_every_device_argument_defaults_to_the_card():
                 "models.pitchnet.run_analyze_neural",
                 "models.pitchnet.dispatch_analyze_neural",
                 "models.pitchnet.run_analyze_neural_streamed",
-                "models.pitchnet.default_params"}
+                "models.pitchnet.default_params",
+                "core.hpss.hpss", "core.hpss.hpss_program",
+                "synth.stems.separate_stems", "synth.stems.separate_hpss",
+                "synth.adsr.synthesize_note_arrays",
+                "synth.adsr.midi_to_wav_adsr",
+                "synth.adsr.synthesize_midi_adsr",
+                "synth.fluidsynth.synthesize_midi",
+                "synth.effects.apply_effect_chain",
+                "verify.similarity.audio_similarity",
+                "verify.similarity.note_slice_similarity",
+                "verify.per_note.optimize_all_notes",
+                "verify.per_note.synthesize_with_per_note_params",
+                "verify.technique.verify_technique_by_audio_matching",
+                "viz.piano_roll.render_piano_roll"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -380,7 +393,13 @@ def test_every_device_argument_defaults_to_the_card():
     "run_analyze_poly_turbo", "StreamingPolyTranscriber",
     "transcribe_folder_poly", "AegisAutoEngine", "dispatch_analyze_auto",
     "transcribe_folder_auto", "run_analyze_neural", "dispatch_analyze_neural",
-    "run_analyze_neural_streamed", "transcribe_folder_neural"])
+    "run_analyze_neural_streamed", "transcribe_folder_neural",
+    "hpss", "hpss_program", "separate_stems", "separate_hpss",
+    "separate_stems_method_auto", "synthesize_note_arrays",
+    "midi_to_wav_adsr", "synthesize_midi_adsr", "synthesize_midi",
+    "apply_effect_chain", "audio_similarity", "note_slice_similarity",
+    "optimize_all_notes", "synthesize_with_per_note_params",
+    "verify_technique_by_audio_matching", "render_piano_roll"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
@@ -390,6 +409,19 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
     from aegis_tpu_torch.engine import (auto, engine, financial, folder,
                                         poly, realtime, turbo)
     from aegis_tpu_torch.models import pitchnet
+    from aegis_tpu_torch.core import hpss
+    from aegis_tpu_torch.io import write_wav
+    from aegis_tpu_torch.midi import events_to_midi
+    from aegis_tpu_torch.synth import adsr, effects, fluidsynth, stems
+    from aegis_tpu_torch.verify import (per_note, similarity, technique)
+    from aegis_tpu_torch.viz import piano_roll
+    monkeypatch.setattr(stems, "find_demucs", lambda: None)
+    event = {"note": 57, "start": 0, "end": 6, "velocity": 90,
+             "track": "main", "technique": None, "confidence": 0.9}
+    notes = [{"note": 57, "start": 0.0, "end": 0.1, "velocity": 90}]
+    midi = events_to_midi([event], SR, 512, output=None)
+    wav = str(tmp_path / "in.wav")
+    write_wav(wav, np.zeros(4096, np.float32), SR)
     cpu_auto = auto.AegisAutoEngine(sample_rate=SR, device="cpu")
     net = pitchnet.default_params("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -430,6 +462,32 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
         "transcribe_folder_neural":
             lambda: folder.transcribe_folder(str(tmp_path),
                                              pitch_backend="neural"),
+        "hpss": lambda: hpss.hpss(y),
+        "hpss_program": lambda: hpss.hpss_program(y),
+        "separate_stems": lambda: stems.separate_stems(wav, str(tmp_path),
+                                                       method="hpss"),
+        "separate_hpss": lambda: stems.separate_hpss(wav, str(tmp_path)),
+        "separate_stems_method_auto": lambda: stems.separate_stems(
+            wav, str(tmp_path)),
+        "synthesize_note_arrays":
+            lambda: adsr.synthesize_note_arrays(notes, SR),
+        "midi_to_wav_adsr": lambda: adsr.midi_to_wav_adsr(midi),
+        "synthesize_midi_adsr": lambda: adsr.synthesize_midi_adsr(midi),
+        "synthesize_midi": lambda: fluidsynth.synthesize_midi(midi),
+        "apply_effect_chain": lambda: effects.apply_effect_chain(y, []),
+        "audio_similarity": lambda: similarity.audio_similarity(y, y, SR),
+        "note_slice_similarity":
+            lambda: similarity.note_slice_similarity(y[None], y[None], SR),
+        "optimize_all_notes":
+            lambda: per_note.optimize_all_notes(y, [event], SR, 512),
+        "synthesize_with_per_note_params":
+            lambda: per_note.synthesize_with_per_note_params(
+                [event], per_note.optimize_all_notes(
+                    y, [event], SR, 512, mode="quick", device="cpu"), SR, 512),
+        "verify_technique_by_audio_matching":
+            lambda: technique.verify_technique_by_audio_matching(
+                y, [dict(event, technique="bend")], SR, 512),
+        "render_piano_roll": lambda: piano_roll.render_piano_roll(midi),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
