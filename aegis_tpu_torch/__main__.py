@@ -16,6 +16,8 @@ versions):
   stems       WAV/MP3 -> the guitar-ish stem (Demucs when on PATH, else
               HPSS on the device); prints its path, exits 2 when that is
               the input itself
+  serve       the REST API + SPA server (serve/server.py) on --host /
+              --port, its engines on --device
 """
 
 from __future__ import annotations
@@ -298,6 +300,15 @@ def cmd_stems(args) -> int:
     return 0 if path != args.input else 2
 
 
+def cmd_serve(args) -> int:
+    """The REST server until interrupted (``python -m
+    aegis_tpu_torch.serve.server`` takes the same flags)."""
+    from aegis_tpu_torch.serve.server import main as serve_main
+
+    serve_main(args.host, args.port, device=args.device)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="aegis_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -407,6 +418,12 @@ def main(argv=None) -> int:
                    choices=["auto", "demucs", "hpss"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_stems)
+
+    p = sub.add_parser("serve", description="REST API + SPA server")
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8508)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     if getattr(args, "end", None) is not None and args.end <= args.start:

@@ -9,7 +9,9 @@ Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no fallback between the two.  Each
 kernel launch adds one to ``LAUNCHES[name]``, records its batch size B in
 ``LAST_BATCH[name]`` and adds B to ``SEQUENCES[name]``, so a run can show
-that it went through the kernels, and with how many sequences.
+that it went through the kernels, and with how many sequences.  The counts
+and the build are shared by every thread of a process (the REST server runs
+requests in threads), so each is updated under a lock.
 
 The library is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
 under the repository root, keyed by a hash of the source and the flags,
@@ -35,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Tuple
 
@@ -90,6 +93,11 @@ BACK_CHUNK = 64
 MAX_FRAMES = 1 << 20
 
 _LIB = None
+# one build and one binding a process, whichever thread comes first; the
+# others wait for it and get the same library
+_BUILD_LOCK = threading.Lock()
+_LIB_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 # --------------------------------------------------------------------------
@@ -116,16 +124,22 @@ def build(source: Path = SOURCE) -> Path:
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     so_path = BUILD_DIR / f"libaegis_{source.stem}_{digest}.so"
-    if not so_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so_path.with_name(f"{so_path.name}.tmp{os.getpid()}")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, str(source), "-o", str(tmp)],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        so_path.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so_path)
+    with _BUILD_LOCK:
+        if not so_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            # unique per process and per thread: two processes sharing the
+            # build directory never write into one temporary file
+            tmp = so_path.with_name(f"{so_path.name}.tmp{os.getpid()}"
+                                    f".{threading.get_ident()}")
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, str(source), "-o",
+                                   str(tmp)],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            so_path.with_suffix(".ptxas.txt").write_text(proc.stdout
+                                                         + proc.stderr)
+            os.replace(tmp, so_path)
     return so_path
 
 
@@ -142,11 +156,21 @@ def _bind(so_path: Path) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, once a process)."""
     global _LIB
     if _LIB is None:
-        _LIB = _bind(build())
+        with _LIB_LOCK:
+            if _LIB is None:
+                _LIB = _bind(build())
     return _LIB
+
+
+def _count(name: str, B: int) -> None:
+    """One launch of kernel ``name`` at batch size B."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAST_BATCH[name] = B
+        SEQUENCES[name] += B
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -365,9 +389,7 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
     tile, cluster = pick_forward_variant(B, props.multi_processor_count)
     out = _launch_fwd(log_obs_v, log_obs_u, tab, n, w, log_stay, log_switch,
                       tile, cluster, max_shared_memory(dev))
-    LAUNCHES["viterbi_fwd"] += 1
-    LAST_BATCH["viterbi_fwd"] = B
-    SEQUENCES["viterbi_fwd"] += B
+    _count("viterbi_fwd", B)
     return out
 
 
@@ -400,9 +422,7 @@ def viterbi_back(delta_last: torch.Tensor, psi_v: torch.Tensor,
             maps.data_ptr(), states.data_ptr(), B, T, n, BACK_CHUNK,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "viterbi_back")
-    LAUNCHES["viterbi_back"] += 1
-    LAST_BATCH["viterbi_back"] = B
-    SEQUENCES["viterbi_back"] += B
+    _count("viterbi_back", B)
     return states
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -163,6 +164,7 @@ def have_default_weights() -> bool:
 
 
 _DEVICE_PARAMS: Dict[str, PitchNet] = {}
+_PARAMS_LOCK = threading.Lock()   # the server's request threads load it too
 
 
 def default_params(device="cuda") -> PitchNet:
@@ -171,9 +173,10 @@ def default_params(device="cuda") -> PitchNet:
     neural backend."""
     device = resolve_device(device)
     key = str(device)
-    if key not in _DEVICE_PARAMS:
-        _DEVICE_PARAMS[key] = pitchnet_from_numpy(load_params(), device)
-    return _DEVICE_PARAMS[key]
+    with _PARAMS_LOCK:
+        if key not in _DEVICE_PARAMS:
+            _DEVICE_PARAMS[key] = pitchnet_from_numpy(load_params(), device)
+        return _DEVICE_PARAMS[key]
 
 
 # ------------------------------------------------------- per-frame stages

@@ -16,6 +16,10 @@ The library is ``aegis_torch_native_<hash>.so`` under
 with the JAX package's ``aegis_native_<hash>.so``.
 
 Set ``AEGIS_NATIVE=0`` to disable the native paths entirely.
+
+The build runs once a process, under a lock: a thread that asks while
+another builds waits and gets the finished library (the REST server's
+request threads reach it together).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import hashlib
 import os
 import subprocess
 import sys
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -35,6 +40,7 @@ _SRCS = [os.path.join(_HERE, "events_core.cpp"),
          os.path.join(_HERE, "trend_core.cpp")]
 _LIB = None
 _TRIED = False
+_LOCK = threading.Lock()
 
 
 def _cache_dir() -> str:
@@ -48,7 +54,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOCK:
+        if not _TRIED:
+            _LIB = _load()
+            _TRIED = True   # after _LIB: a reader that sees it sees the library
+    return _LIB
+
+
+def _load() -> Optional[ctypes.CDLL]:
     if os.environ.get("AEGIS_NATIVE", "1") == "0":
         return None
     try:
@@ -60,7 +73,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         so_path = os.path.join(_cache_dir(), f"aegis_torch_native_{digest}.so")
         if not os.path.exists(so_path):
             os.makedirs(_cache_dir(), exist_ok=True)
-            tmp = so_path + f".tmp{os.getpid()}"
+            tmp = so_path + f".tmp{os.getpid()}.{threading.get_ident()}"
             subprocess.run(
                 ["g++", "-O3", "-ffp-contract=off", "-shared", "-fPIC",
                  "-std=c++17",
@@ -80,12 +93,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         for name in ("ema", "kalman", "holt", "artic", "kalman_f32",
                      "holt_f32", "wilder"):
             getattr(lib, f"aegis_trend_{name}").restype = None
-        _LIB = lib
+        return lib
     except Exception as e:  # no compiler / failed build: numpy fallback
         print(f"[aegis_torch.native] build unavailable ({e}); NumPy fallback",
               file=sys.stderr)
-        _LIB = None
-    return _LIB
+        return None
 
 
 _TECH_NAMES = {0: None, 1: "vibrato", 2: "bend", 3: "slide"}

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from typing import Optional, Union
 
 from aegis_tpu_torch import resolve_device
@@ -88,13 +89,15 @@ class FluidSynthSynthesizer:
 
 
 _singleton: Optional[FluidSynthSynthesizer] = None
+_SINGLETON_LOCK = threading.Lock()   # the server's request threads reach it
 
 
 def get_synthesizer() -> FluidSynthSynthesizer:
     global _singleton
-    if _singleton is None:
-        _singleton = FluidSynthSynthesizer()
-    return _singleton
+    with _SINGLETON_LOCK:
+        if _singleton is None:
+            _singleton = FluidSynthSynthesizer()
+        return _singleton
 
 
 def synthesize_midi(midi_data: Union[bytes, io.BytesIO],

@@ -7,9 +7,9 @@ Drives the port's main paths, the v1 WAV -> MIDI transcription
 (``AegisEngine.audio_to_midi`` -> ``extract_events`` -> MIDI bytes), the
 financial (v2) engine, the tiled, streamed and folder-batch modes, the
 live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
-the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain
-and the self-verification loops, in twenty-four phases; each raises on
-failure:
+the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
+the self-verification loops and the REST server, in twenty-five phases;
+each raises on failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -157,6 +157,26 @@ failure:
                parameters per note as the CPU on the events of the first
                15 s), verify_technique_by_audio_matching (the same
                decisions as the CPU); the loops' times.
+ 25. serve   — the REST server as AegisServer() builds it (44 100 Hz, hop
+               512, the card) behind ThreadingHTTPServer on 127.0.0.1:
+               /api/health unprobed and probed ("gpu", the device count);
+               the 60 s bench track uploaded (multipart) and analysed
+               (auto -> fused): events and MIDI equal to the facade's on the
+               same decoded samples, truth F1 >= 0.99, one launch of each
+               kernel a request, both kernels identical to their plain
+               versions on the request's observations; turbo=tiles; a
+               10-minute upload under turbo=auto ("stream", one launch a
+               slab); pitch_backend=neural (no launch); refilter, midi,
+               tabs, spectrogram; analyze-poly on chord seed 3 and
+               analyze-auto on mixed seed 1 against their facades;
+               reverse-analysis and adsr-synth on the analysed session; a
+               live v1 session fed 0.5 s int16 chunks, polled every 2 s of
+               audio, against a StreamingTranscriber run directly; four
+               concurrent clients against their sequential answers.  Every
+               request's status is checked.  One line of per-endpoint warm
+               medians of 5 request wall times beside the facade's, their
+               difference, and device busy ms and launches of one profiled
+               request.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -170,9 +190,11 @@ the package is missing.
 
 from __future__ import annotations
 
+import base64
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2047,6 +2069,553 @@ def phase_verify(dev, tracks, midi: bytes, errs: dict, total: dict,
     return kernel_row
 
 
+
+# ----------------------------------------------------------------- serve
+
+# the server's Phase-2 defaults (serve/server.py::_extract) with no query
+SERVE_EXTRACT = dict(confidence_threshold=0.70, min_note_duration_ms=100,
+                     sustain_ms=200, midi_program=27, noise_gate_db=-40.0,
+                     use_onsets=True)
+
+
+class Client:
+    """HTTP calls to one server, each held to the status it must answer
+    (a 500, or any status but the expected one, raises)."""
+
+    def __init__(self, base: str):
+        self.base = base
+        self.calls = 0
+
+    def call(self, method: str, path: str, body: bytes | None = None,
+             expect: int = 200, ctype: str | None = None):
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + path, data=body,
+                                     method=method)
+        if ctype:
+            req.add_header("Content-Type", ctype)
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, got_ctype, data = (r.status,
+                                           r.headers.get("Content-Type"),
+                                           r.read())
+        except urllib.error.HTTPError as e:
+            status, got_ctype, data = e.code, e.headers.get(
+                "Content-Type"), e.read()
+        ms = 1e3 * (time.perf_counter() - t0)
+        self.calls += 1
+        if status != expect:
+            raise AssertionError(f"{method} {path}: status {status}, "
+                                 f"expected {expect}: {data[:500]!r}")
+        if got_ctype == "application/json":
+            data = json.loads(data)
+        return data, ms
+
+    def json(self, method: str, path: str, body: bytes | None = None,
+             expect: int = 200, ctype: str | None = None):
+        return self.call(method, path, body, expect, ctype)[0]
+
+
+def wav_bytes(y: np.ndarray, sr: int) -> bytes:
+    buf = io.BytesIO()
+    write_wav(buf, y, sr)
+    return buf.getvalue()
+
+
+def decoded(data: bytes, sr: int, folder: str) -> np.ndarray:
+    """An upload's samples as the server decodes them at ``sr``."""
+    from aegis_tpu_torch.io.audio import load_audio
+
+    fd, path = tempfile.mkstemp(suffix=".wav", dir=folder)
+    with os.fdopen(fd, "wb") as f:
+        f.write(data)
+    return load_audio(path, sr=sr)[0]
+
+
+def phase_serve(dev, tracks, y10, errs, total: dict, per_call: dict) -> dict:
+    """The REST server on the card, as ``AegisServer()`` builds it (44 100
+    Hz, hop 512, device cuda) behind ThreadingHTTPServer on 127.0.0.1:
+    health unprobed and probed; the 60 s bench track uploaded and analysed
+    fused (auto -> fused), its events and MIDI equal to the facade's on the
+    same decoded samples, truth F1 >= 0.99, one launch of each kernel a
+    request, both kernels identical to their plain versions on the
+    request's observations; turbo=tiles; a 10-minute upload (22 050 Hz,
+    decoded at 44 100 Hz) under turbo=auto, reported "stream"; the neural
+    backend (no Viterbi launch); refilter, midi, tabs, spectrogram;
+    analyze-poly on chord seed 3 and analyze-auto on mixed seed 1 against
+    their facades; reverse-analysis and adsr-synth on the analysed session;
+    a live v1 session fed 0.5 s int16 chunks and polled every 2 s of
+    audio, against a StreamingTranscriber run directly; four concurrent
+    clients against their sequential answers.  Every request's status is
+    checked.  Prints one line of per-endpoint warm medians of 5 request wall
+    times beside the facade's, their difference, and device busy ms and
+    launches of one profiled request.  Returns the kernels' times at the
+    server's new launch shapes."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from aegis_tpu_torch.serve.http import make_handler
+    from aegis_tpu_torch.serve.server import AegisServer
+    from aegis_tpu_torch.synth.adsr import synthesize_midi_adsr
+    from aegis_tpu_torch.verify.reverse import reverse_analysis
+
+    sr = 44100
+    srv = AegisServer()
+    if (srv.device.type != "cuda" or srv.engine.sr != sr
+            or srv.engine.hop_length != HOP):
+        raise AssertionError(f"serve: default server on {srv.device} at "
+                             f"{srv.engine.sr} Hz, hop {srv.engine.hop_length}")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv.router))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    api = Client(f"http://127.0.0.1:{httpd.server_address[1]}")
+    eng = AegisEngine(sample_rate=sr, device=dev)   # the facade
+    times: dict = {}
+    shapes: dict = {}
+    folder = tempfile.mkdtemp()
+    try:
+        # ---- health: CUDA is up in this process already, so the unprobed
+        # ping reports the card too
+        h = api.json("GET", "/api/health")
+        hp = api.json("GET", "/api/health?probe_device=1")
+        row = {"phase": "serve", "what": "health", "unprobed": h,
+               "probed": hp}
+        emit(row)
+        if (h["status"] != "ok" or hp["platform"] != "gpu"
+                or hp["n_devices"] != torch.cuda.device_count()
+                or hp["engine_sr"] != sr):
+            raise AssertionError(f"serve health: {row}")
+
+        # ---- the 60 s bench track, fused (turbo auto -> off)
+        y, truth = tracks[sr]
+        data = wav_bytes(y, sr)
+        boundary = "aegisboundary"
+        form = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                f"name=\"file\"; filename=\"bench60.wav\"\r\n"
+                f"Content-Type: audio/wav\r\n\r\n").encode() + data + \
+            f"\r\n--{boundary}--\r\n".encode()
+        sid = api.json("POST", "/api/upload", form,
+                       ctype=f"multipart/form-data; boundary={boundary}"
+                       )["session_id"]
+        yd = decoded(data, sr, folder)
+        (j, ms), counts, batch = run_counted(
+            lambda: api.call("POST", f"/api/analyze/{sid}"))
+        expect_launches("serve analyze", counts, batch, 1, 1)
+        add_counts(total, counts)
+        per_call["serve_analyze_44100"] = counts
+        served = srv.sessions.get(sid)["events"]
+        served_midi = base64.b64decode(j["midi_base64"])
+
+        def facade_fused():
+            raw = eng.audio_to_midi(yd, None, turbo_mode="off",
+                                    stream_threshold_s=240.0,
+                                    rake_sensitivity=0.6, pitch_backend="pyin")
+            buf = io.BytesIO()
+            return raw, eng.extract_events(raw, buf, **SERVE_EXTRACT), \
+                buf.getvalue()
+
+        raw, fev, fmidi = facade_fused()
+        row = {"phase": "serve", "what": "analyze", "sr": sr,
+               "analysis_mode": j["analysis_mode"], "events": j["num_events"],
+               "events_equal_facade": served == fev,
+               "midi_equal_facade": served_midi == fmidi,
+               "truth_notes": len(truth),
+               "truth_f1": f1_of(truth, events_to_seconds(served, sr, HOP)),
+               "launches": counts, "request_ms": ms}
+        emit(row)
+        if (row["analysis_mode"] != "fused" or not row["events_equal_facade"]
+                or not row["midi_equal_facade"] or row["truth_f1"] < 0.99):
+            raise AssertionError(f"serve analyze: {row}")
+        obs, vprob, tables = real_obs(yd, sr, dev)
+        compare_kernels("serve_analyze_44100",
+                        *tpyin.decode_inputs(obs[None], vprob[None]),
+                        tables.band, tables.band_tab, tables.half_width, 1.0,
+                        errs)
+
+        # ---- turbo=tiles on the same session
+        turbo = TurboConfig()
+        n_tiles = n_tiles_of(yd, sr, turbo)
+        (j, _), counts, batch = run_counted(
+            lambda: api.call("POST", f"/api/analyze/{sid}?turbo=tiles"))
+        expect_launches("serve tiles", counts, batch, 1, n_tiles)
+        add_counts(total, counts)
+        per_call["serve_tiles_44100"] = counts
+        raw_t = eng.audio_to_midi(yd, None, turbo_mode="tiles")
+        buf = io.BytesIO()
+        tev = eng.extract_events(raw_t, buf, **SERVE_EXTRACT)
+        row = {"phase": "serve", "what": "analyze_tiles", "sr": sr,
+               "analysis_mode": j["analysis_mode"], "n_tiles": n_tiles,
+               "events_equal_facade":
+                   srv.sessions.get(sid)["events"] == tev,
+               "midi_equal_facade":
+                   base64.b64decode(j["midi_base64"]) == buf.getvalue(),
+               "launches": counts}
+        emit(row)
+        if (j["analysis_mode"] != "tiles" or not row["events_equal_facade"]
+                or not row["midi_equal_facade"]):
+            raise AssertionError(f"serve tiles: {row}")
+
+        # ---- the neural backend: no Viterbi launch
+        (j, _), counts, _ = run_counted(lambda: api.call(
+            "POST", f"/api/analyze/{sid}?pitch_backend=neural"))
+        raw_n = eng.audio_to_midi(yd, None, turbo_mode="off",
+                                  pitch_backend="neural")
+        buf = io.BytesIO()
+        nev = eng.extract_events(raw_n, buf, **SERVE_EXTRACT)
+        row = {"phase": "serve", "what": "analyze_neural",
+               "analysis_mode": j["analysis_mode"],
+               "events": j["num_events"],
+               "events_equal_facade": srv.sessions.get(sid)["events"] == nev,
+               "midi_equal_facade":
+                   base64.b64decode(j["midi_base64"]) == buf.getvalue(),
+               "launches": counts}
+        emit(row)
+        if (any(counts.values()) or j["pitch_backend"] != "neural"
+                or not row["events_equal_facade"]
+                or not row["midi_equal_facade"]):
+            raise AssertionError(f"serve neural: {row}")
+
+        # ---- back to the pYIN analysis; Phase 2 endpoints on it
+        api.call("POST", f"/api/analyze/{sid}")
+        refilter_q = ("confidence_threshold=0.5&min_note_duration_ms=80"
+                      "&sustain_ms=150&bpm=120")
+        rj, _ = api.call("POST", f"/api/refilter/{sid}?{refilter_q}")
+        buf = io.BytesIO()
+        rev = eng.extract_events(raw, buf, **{
+            **SERVE_EXTRACT, "confidence_threshold": 0.5,
+            "min_note_duration_ms": 80, "sustain_ms": 150, "bpm": 120.0})
+        midi, _ = api.call("GET", f"/api/midi/{sid}")
+        tabs, _ = api.call("GET", f"/api/tabs/{sid}")
+        spec, _ = api.call("GET", f"/api/spectrogram/{sid}")
+        grid = base64.b64decode(spec["grid_base64"])
+        row = {"phase": "serve", "what": "phase_two",
+               "refilter_events": rj["num_events"],
+               "refilter_equal_facade": (srv.sessions.get(sid)["events"]
+                                         == rev and midi == buf.getvalue()),
+               "tabs_notes": tabs["total_notes"],
+               "spectrogram": [spec["frames"], spec["n_mels"],
+                               spec["frame_step"]],
+               "db_range": spec["db_range"]}
+        emit(row)
+        if (not row["refilter_equal_facade"] or not midi.startswith(b"MThd")
+                or tabs["total_notes"] != len(rev)
+                or len(grid) != spec["frames"] * spec["n_mels"]):
+            raise AssertionError(f"serve phase two: {row}")
+
+        # ---- reverse analysis and the ADSR synth on the analysed session
+        (rv, _), counts, batch = run_counted(
+            lambda: api.call("POST", f"/api/reverse-analysis/{sid}"))
+        expect_launches("serve reverse-analysis", counts, batch, 1, 1)
+        add_counts(total, counts)
+        per_call["serve_reverse_44100"] = counts
+        ref = reverse_analysis(midi, eng, sample_rate=sr)
+        adsr, _ = api.call("POST", f"/api/adsr-synth/{sid}")
+        wav_ref = synthesize_midi_adsr(midi, preset="electric_clean",
+                                       sample_rate=sr, device=dev)
+        row = {"phase": "serve", "what": "reverse_and_adsr", **rv,
+               "launches": counts,
+               "reverse_equal_facade": all(
+                   rv[k] == (round(ref[k], 3) if isinstance(ref[k], float)
+                             else ref[k]) for k in rv),
+               "adsr_wav_equal_facade":
+                   base64.b64decode(adsr["wav_base64"]) == wav_ref}
+        emit(row)
+        if not (row["reverse_equal_facade"] and row["adsr_wav_equal_facade"]):
+            raise AssertionError(f"serve reverse / adsr: {row}")
+
+        # ---- chords and the router against their facades
+        chord, _ = generate_chord_progression(3, sr=sr)
+        mixed, _ = generate_mixed_clip(1, sr=sr)
+        cdata, mdata = wav_bytes(chord, sr), wav_bytes(mixed, sr)
+        psid = api.json("POST", "/api/upload?name=chord3.wav",
+                        cdata)["session_id"]
+        asid = api.json("POST", "/api/upload?name=mixed1.wav",
+                        mdata)["session_id"]
+        (pj, _), counts, _ = run_counted(
+            lambda: api.call("POST", f"/api/analyze-poly/{psid}"))
+        if any(counts.values()):
+            raise AssertionError(f"serve analyze-poly: a poly path launched "
+                                 f"a Viterbi kernel {counts}")
+        peng = AegisPolyEngine(sample_rate=sr, device=dev)
+        buf = io.BytesIO()
+        pev = peng.extract_events(peng.analyze(decoded(cdata, sr, folder)),
+                                  buf, confidence_threshold=0.5,
+                                  use_onsets=True, midi_program=25, bpm=None)
+        pequal = (srv.sessions.get(psid)["events"] == pev
+                  and base64.b64decode(pj["midi_base64"]) == buf.getvalue())
+        (aj, _), counts, batch = run_counted(
+            lambda: api.call("POST", f"/api/analyze-auto/{asid}"))
+        expect_launches("serve analyze-auto", counts, batch, 1, 1)
+        add_counts(total, counts)
+        per_call["serve_auto_mixed1_44100"] = counts
+        aeng = AegisAutoEngine(sample_rate=sr, device=dev)
+        ymixed = decoded(mdata, sr, folder)
+        buf = io.BytesIO()
+        aev = aeng.extract_events(aeng.analyze(ymixed), buf, midi_program=25,
+                                  bpm=None)
+        aequal = (srv.sessions.get(asid)["events"] == aev
+                  and base64.b64decode(aj["midi_base64"]) == buf.getvalue())
+        row = {"phase": "serve", "what": "poly_and_auto",
+               "poly_events": pj["num_events"], "poly_equal_facade": pequal,
+               "poly_hop": pj["hop_length"], "auto_events": aj["num_events"],
+               "auto_equal_facade": aequal, "auto_hop": aj["hop_length"],
+               "auto_launches": counts}
+        emit(row)
+        if not (pequal and aequal) or not pj["num_events"] \
+                or not aj["num_events"]:
+            raise AssertionError(f"serve poly / auto: {row}")
+        obs_a, vprob_a, tables_a = real_obs(ymixed, sr, dev, aeng.hop_length)
+        compare_kernels("serve_auto_mixed1_44100",
+                        *tpyin.decode_inputs(obs_a[None], vprob_a[None]),
+                        tables_a.band, tables_a.band_tab,
+                        tables_a.half_width, 1.0, errs)
+        shapes["auto_mixed1"] = time_kernels(obs_a[None], vprob_a[None],
+                                             tables_a, False)
+
+        # ---- ten minutes under turbo=auto: the streamed slabs
+        data10 = wav_bytes(y10, 22050)
+        sid10, up10_ms = api.call("POST", "/api/upload?name=bench600.wav",
+                                  data10)
+        sid10 = sid10["session_id"]
+        y10d = decoded(data10, sr, folder)
+        (j10, ms10), counts, batch = run_counted(
+            lambda: api.call("POST", f"/api/analyze/{sid10}"))
+        n10 = n_tiles_of(y10d, sr, turbo)
+        slabs = -(-n10 // 16)
+        expect_launches("serve stream", counts, batch, slabs)
+        add_counts(total, counts)
+        per_call["serve_stream_44100"] = counts
+        t0 = time.perf_counter()
+        raw10 = eng.audio_to_midi(y10d, None, turbo_mode="stream")
+        ev10 = eng.extract_events(raw10, io.BytesIO(), **SERVE_EXTRACT)
+        facade10_ms = 1e3 * (time.perf_counter() - t0)
+        row = {"phase": "serve", "what": "analyze_10_minutes",
+               "analysis_mode": j10["analysis_mode"], "n_tiles": n10,
+               "slabs": slabs, "events": j10["num_events"],
+               "events_equal_facade":
+                   srv.sessions.get(sid10)["events"] == ev10,
+               "launches": counts}
+        emit(row)
+        if j10["analysis_mode"] != "stream" or not row["events_equal_facade"]:
+            raise AssertionError(f"serve 10 minutes: {row}")
+        obs_s, vprob_s, tables_s = tile_obs(
+            y10d[:(16 * turbo.tile_frames - 1) * HOP], sr, dev, turbo)
+        compare_kernels("serve_stream_slab_44100",
+                        *tpyin.decode_inputs(obs_s, vprob_s), tables_s.band,
+                        tables_s.band_tab, tables_s.half_width, 1.0, errs)
+        shapes["stream_slab_44100"] = time_kernels(obs_s, vprob_s, tables_s,
+                                                   False)
+        times["analyze_stream_10min"] = {
+            "request_ms": ms10, "facade_ms": facade10_ms,
+            "overhead_ms": ms10 - facade10_ms, "upload_ms": up10_ms,
+            "runs": 1}
+        del y10d, raw10
+
+        # ---- a live v1 session against a StreamingTranscriber run directly
+        start = api.json("POST", f"/api/stream-start?engine=v1&sr={sr}")
+        lsid = start["session_id"]
+        pcm = np.round(np.clip(y, -1, 1) * 32767).astype("<i2").tobytes()
+        chunk = int(0.5 * sr) * 2
+        feed_ms, poll_ms = [], []
+
+        def serve_live():
+            for k, i in enumerate(range(0, len(pcm), chunk)):
+                feed_ms.append(api.call("POST", f"/api/stream-feed/{lsid}",
+                                        pcm[i:i + chunk])[1])
+                if k % 4 == 3:
+                    poll_ms.append(api.call(
+                        "GET", f"/api/stream-events/{lsid}")[1])
+            return api.json("POST", f"/api/stream-finalize/{lsid}")
+
+        fin, counts, batch = run_counted(serve_live)
+        served_live = srv.sessions.get(lsid)["events"]
+        tiles = counts["viterbi_fwd"]
+        if batch["viterbi_fwd"] != 1 or counts["viterbi_back"] != tiles:
+            raise AssertionError(f"serve live: launches {counts} {batch}")
+        add_counts(total, counts)
+        per_call["serve_live_44100"] = counts
+        rt = StreamingTranscriber(audio=srv.engine.audio, tile_frames=24,
+                                  halo_frames=8, rake_sensitivity=0.6,
+                                  financial=False, confidence_threshold=0.5,
+                                  device=dev)
+        direct_feed_ms = []
+
+        def direct_live():
+            for k, i in enumerate(range(0, len(pcm), chunk)):
+                x = np.frombuffer(pcm[i:i + chunk], dtype="<i2").astype(
+                    np.float32) / 32768.0
+                t0 = time.perf_counter()
+                rt.feed(x)
+                direct_feed_ms.append(1e3 * (time.perf_counter() - t0))
+                if k % 4 == 3:
+                    rt.poll_events()
+            return rt.finalize()
+
+        direct, dcounts, _ = run_counted(direct_live)
+        row = {"phase": "serve", "what": "live_v1", "sr": sr,
+               "lookahead_s": start["lookahead_s"],
+               "hop_length": start["hop_length"], "feeds": len(feed_ms),
+               "polls": len(poll_ms), "events": fin["num_events"],
+               "events_equal_direct": served_live == direct,
+               "launches": counts, "direct_launches": dcounts,
+               "truth_f1": f1_of(truth, events_to_seconds(served_live, sr,
+                                                          HOP))}
+        emit(row)
+        if (not row["events_equal_direct"] or counts != dcounts
+                or not tiles or row["truth_f1"] < 0.99):
+            raise AssertionError(f"serve live: {row}")
+        times["stream_feed_0.5s"] = {
+            "request_ms": float(np.median(feed_ms)),
+            "facade_ms": float(np.median(direct_feed_ms)),
+            "overhead_ms": float(np.median(feed_ms)
+                                 - np.median(direct_feed_ms)),
+            "runs": len(feed_ms)}
+        times["stream_events_poll"] = {
+            "request_ms": float(np.median(poll_ms)), "runs": len(poll_ms)}
+
+        # ---- four clients at once, each against its sequential answer
+        sids = [sid]
+        for seed in (43, 44, 45):
+            ys = generate_bench_track(60.0, sr=sr, seed=seed)
+            sids.append(api.json("POST", f"/api/upload?name=s{seed}.wav",
+                                 wav_bytes(ys, sr))["session_id"])
+        sequential = [api.json("POST", f"/api/analyze/{s}") for s in sids]
+        answers, failures = [None] * len(sids), []
+        barrier = threading.Barrier(len(sids))
+
+        def client(i):
+            try:
+                barrier.wait(timeout=60)
+                answers[i] = api.json("POST", f"/api/analyze/{sids[i]}")
+            except Exception as e:   # re-raised below, in this thread
+                failures.append(e)
+
+        def concurrent():
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(sids))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("serve concurrent: a client hangs")
+
+        _, counts, _ = run_counted(concurrent)
+        if failures:
+            raise failures[0]
+        add_counts(total, counts)
+        row = {"phase": "serve", "what": "concurrent_clients",
+               "clients": len(sids),
+               "equal_sequential": [a == s for a, s in zip(answers,
+                                                           sequential)],
+               "events": [s["num_events"] for s in sequential],
+               "launches": counts}
+        emit(row)
+        if not all(row["equal_sequential"]) or any(
+                v != len(sids) for v in counts.values()):
+            raise AssertionError(f"serve concurrent: {row}")
+
+        # ---- per-endpoint times: request against the facade
+        facade_poly = AegisPolyEngine(sample_rate=sr, device=dev)
+        ychord = decoded(cdata, sr, folder)
+        endpoints = {
+            "analyze_tiles_60s": (
+                lambda: api.call("POST", f"/api/analyze/{sid}?turbo=tiles"),
+                lambda: eng.extract_events(eng.audio_to_midi(
+                    yd, None, turbo_mode="tiles"), io.BytesIO(),
+                    **SERVE_EXTRACT)),
+            "analyze_neural_60s": (
+                lambda: api.call(
+                    "POST", f"/api/analyze/{sid}?pitch_backend=neural"),
+                lambda: eng.extract_events(eng.audio_to_midi(
+                    yd, None, turbo_mode="off", pitch_backend="neural"),
+                    io.BytesIO(), **SERVE_EXTRACT)),
+            "analyze_fused_60s": (
+                lambda: api.call("POST", f"/api/analyze/{sid}"),
+                facade_fused),
+            "refilter": (
+                lambda: api.call("POST", f"/api/refilter/{sid}?{refilter_q}"),
+                lambda: eng.extract_events(raw, io.BytesIO(), **{
+                    **SERVE_EXTRACT, "confidence_threshold": 0.5,
+                    "min_note_duration_ms": 80, "sustain_ms": 150,
+                    "bpm": 120.0})),
+            "midi": (lambda: api.call("GET", f"/api/midi/{sid}"), None),
+            "tabs": (lambda: api.call("GET", f"/api/tabs/{sid}"),
+                     lambda: eng.generate_tabs(rev)),
+            "spectrogram": (lambda: api.call("GET",
+                                             f"/api/spectrogram/{sid}"),
+                            None),
+            "reverse_analysis": (
+                lambda: api.call("POST", f"/api/reverse-analysis/{sid}"),
+                lambda: reverse_analysis(midi, eng, sample_rate=sr)),
+            "adsr_synth": (
+                lambda: api.call("POST", f"/api/adsr-synth/{sid}"),
+                lambda: synthesize_midi_adsr(midi, preset="electric_clean",
+                                             sample_rate=sr, device=dev)),
+            "analyze_poly_chord3": (
+                lambda: api.call("POST", f"/api/analyze-poly/{psid}"),
+                lambda: facade_poly.extract_events(
+                    facade_poly.analyze(ychord), io.BytesIO(),
+                    confidence_threshold=0.5, use_onsets=True,
+                    midi_program=25, bpm=None)),
+            "analyze_auto_mixed1": (
+                lambda: api.call("POST", f"/api/analyze-auto/{asid}"),
+                lambda: aeng.extract_events(aeng.analyze(ymixed),
+                                            io.BytesIO(), midi_program=25,
+                                            bpm=None)),
+        }
+        for name, (request, facade) in endpoints.items():
+            req_ms = wall_ms(request)
+            fac_ms = wall_ms(facade) if facade else None
+            kernels, _ = profile_kernels(request)
+            times[name] = {
+                "request_ms": req_ms, "facade_ms": fac_ms,
+                "overhead_ms": None if fac_ms is None else req_ms - fac_ms,
+                "device_busy_ms": sum(us for us, _ in kernels.values()) / 1e3,
+                "device_launches": sum(c for _, c in kernels.values()),
+                "runs": 5}
+        # parts of the overhead, timed alone: the facade in a fresh thread, the
+        # upload's decode, the JSON of an analysis answer, base64 and JSON of
+        # an ADSR answer
+        from aegis_tpu_torch.io.audio import load_audio
+        fd, path60 = tempfile.mkstemp(suffix=".wav", dir=folder)
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        answer = api.json("POST", f"/api/analyze/{sid}")
+
+        def in_a_new_thread(fn):
+            # the server runs each request in a thread of its own
+            t = threading.Thread(target=fn)
+            t.start()
+            t.join()
+
+        host_parts = {
+            "facade_fused_in_a_new_thread_ms": wall_ms(
+                lambda: in_a_new_thread(facade_fused)),
+            "wav_decode_60s_ms": wall_ms(lambda: load_audio(path60, sr=sr)),
+            "json_analyze_answer_ms": wall_ms(lambda: json.dumps(answer)),
+            "base64_json_adsr_answer_ms": wall_ms(lambda: json.dumps(
+                {"wav_base64": base64.b64encode(wav_ref).decode()}))}
+        emit({"phase": "times", "what": "serve_endpoints_ms", "sr": sr,
+              "requests": api.calls, "host_parts_ms": host_parts,
+              "note": "request_ms: warm median of 5 request wall times "
+                      "(host clock; the answer ends every device wait); "
+                      "facade_ms: the same work called directly on the "
+                      "decoded samples; overhead_ms: their difference "
+                      "(upload decode, JSON and base64, HTTP); "
+                      "device_busy_ms / device_launches: torch.profiler "
+                      "over one request",
+              "endpoints": times, "card": CARD["nvidia_smi"]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+        shutil.rmtree(folder, ignore_errors=True)
+    return shapes
+
+
 def add_counts(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -2138,6 +2707,10 @@ def main() -> int:
     timed("synth", phase_synth, dev, midi44)
     reverse_ms = timed("verify", phase_verify, dev, tracks, midi44, errs,
                        total, per_call)
+
+    # the REST server on the card: every request through its HTTP routes
+    serve_ms = timed("serve", phase_serve, dev, tracks, y10, errs, total,
+                     per_call)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -2157,6 +2730,23 @@ def main() -> int:
          per_call["auto60_44100"], auto_ms),
         ("reverse_analysis, 60 s at 44 100 Hz", per_call["reverse60_44100"],
          reverse_ms),
+        ("server POST /api/analyze (auto -> fused), 60 s at 44 100 Hz; "
+         "times at the facade's shape above", per_call["serve_analyze_44100"],
+         fused_ms[44100]),
+        ("server POST /api/analyze?turbo=tiles, 60 s at 44 100 Hz; times at "
+         "the facade's shape above", per_call["serve_tiles_44100"],
+         tiles_ms["tiles60_44100"]),
+        ("server POST /api/analyze (auto -> stream), 10 minutes uploaded at "
+         "22 050 Hz, run at 44 100 Hz in slabs of 16 tiles",
+         per_call["serve_stream_44100"], serve_ms["stream_slab_44100"]),
+        ("server POST /api/analyze-auto, mixed clip seed 1 at 44 100 Hz, "
+         "hop 1024", per_call["serve_auto_mixed1_44100"],
+         serve_ms["auto_mixed1"]),
+        ("server POST /api/reverse-analysis, 60 s at 44 100 Hz; times at "
+         "the shape above", per_call["serve_reverse_44100"], reverse_ms),
+        ("server /api/stream-* live v1, tile 24 / halo 8, 60 s at 44 100 Hz, "
+         "one tile a launch; times at the shape above",
+         per_call["serve_live_44100"], live_ms[(44100, 24, 8)]),
     ] + [
         (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
          "launch", per_call[("live", sr, tile, halo)],

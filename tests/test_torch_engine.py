@@ -395,6 +395,32 @@ _POLY_PATHS = (
     "assert verify_technique_by_audio_matching(\n"
     "    ys, [dict(sev[0], technique='bend')], 22050, 512, device='cpu')\n"
     "assert '<audio' in render_piano_roll(smid, offline=True, device='cpu')\n"
+) + (
+    # the REST server, its routes dispatched in process
+    "import json\n"
+    "from aegis_tpu_torch.serve.server import AegisServer\n"
+    "srv = AegisServer(engine=seng)\n"
+    "def api(method, path, query=None, body=b''):\n"
+    "    r = srv.router.dispatch(method, path, query or {}, body, '')\n"
+    "    assert r.status == 200, (path, r.content)\n"
+    "    return (json.loads(r.content)\n"
+    "            if r.media_type == 'application/json' else r.content)\n"
+    "wb = io.BytesIO()\n"
+    "write_wav(wb, ys, 22050)\n"
+    "sid = api('POST', '/api/upload', body=wb.getvalue())['session_id']\n"
+    "assert api('POST', f'/api/analyze/{sid}',\n"
+    "           {'confidence_threshold': '0.3'})['num_events']\n"
+    "for route in ('tabs', 'spectrogram', 'midi'):\n"
+    "    assert api('GET', f'/api/{route}/{sid}')\n"
+    "assert api('POST', f'/api/reverse-analysis/{sid}')['original_notes']\n"
+    "assert api('POST', f'/api/adsr-synth/{sid}')['wav_base64']\n"
+    "assert api('POST', f'/api/analyze-poly/{sid}')['num_events']\n"
+    "assert api('POST', f'/api/analyze-auto/{sid}')['num_events']\n"
+    "lid = api('POST', '/api/stream-start', {'engine': 'v1'})['session_id']\n"
+    "api('POST', f'/api/stream-feed/{lid}',\n"
+    "    body=np.round(ys * 32767).astype('<i2').tobytes())\n"
+    "assert api('POST', f'/api/stream-finalize/{lid}')['num_events']\n"
+    "assert api('GET', '/api/health', {'probe_device': '1'})['platform'] == 'cpu'\n"
 )
 
 
@@ -402,8 +428,9 @@ def test_port_never_imports_jax():
     """With jax made unimportable, the port still runs the v1 path fused,
     tiled and streamed, the financial engine, the folder sweep, a live v1
     and a live financial session, the polyphonic stack (fused, tiles,
-    folder, live, tabs), the auto router (facade and folder) and the
-    neural backend (fused, streamed, financial, folder)."""
+    folder, live, tabs), the auto router (facade and folder), the
+    neural backend (fused, streamed, financial, folder), HPSS, the synth,
+    the loops and the REST server's routes."""
     code = (
         "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"

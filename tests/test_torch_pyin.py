@@ -378,7 +378,8 @@ def test_every_device_argument_defaults_to_the_card():
                 "verify.per_note.optimize_all_notes",
                 "verify.per_note.synthesize_with_per_note_params",
                 "verify.technique.verify_technique_by_audio_matching",
-                "viz.piano_roll.render_piano_roll"}
+                "viz.piano_roll.render_piano_roll",
+                "serve.server.AegisServer", "serve.server.main"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -399,7 +400,8 @@ def test_every_device_argument_defaults_to_the_card():
     "midi_to_wav_adsr", "synthesize_midi_adsr", "synthesize_midi",
     "apply_effect_chain", "audio_similarity", "note_slice_similarity",
     "optimize_all_notes", "synthesize_with_per_note_params",
-    "verify_technique_by_audio_matching", "render_piano_roll"])
+    "verify_technique_by_audio_matching", "render_piano_roll",
+    "AegisServer", "serve_main"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
@@ -415,6 +417,7 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
     from aegis_tpu_torch.synth import adsr, effects, fluidsynth, stems
     from aegis_tpu_torch.verify import (per_note, similarity, technique)
     from aegis_tpu_torch.viz import piano_roll
+    from aegis_tpu_torch.serve import server
     monkeypatch.setattr(stems, "find_demucs", lambda: None)
     event = {"note": 57, "start": 0, "end": 6, "velocity": 90,
              "track": "main", "technique": None, "confidence": 0.9}
@@ -488,6 +491,8 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
             lambda: technique.verify_technique_by_audio_matching(
                 y, [dict(event, technique="bend")], SR, 512),
         "render_piano_roll": lambda: piano_roll.render_piano_roll(midi),
+        "AegisServer": lambda: server.AegisServer(),
+        "serve_main": lambda: server.main("127.0.0.1", 0),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
