@@ -18,6 +18,11 @@ versions):
               the input itself
   serve       the REST API + SPA server (serve/server.py) on --host /
               --port, its engines on --device
+  train       the PitchNet trainer (models/train.py): --steps --batch
+              --clips --clip-len --seed --out; --out defaults to the
+              packaged checkpoint, so name one to keep it
+  validate    the F1 gate of the card against the CPU oracle
+              (tools/validate_device.py): --quick; exit 1 on a failure
 """
 
 from __future__ import annotations
@@ -424,6 +429,16 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=8508)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_serve)
+
+    from aegis_tpu_torch.models import train
+    from aegis_tpu_torch.tools import validate_device
+    for name, mod, note in (
+            ("train", train, "PitchNet trainer (models/train.py)"),
+            ("validate", validate_device,
+             "on-device F1 gate (tools/validate_device.py)")):
+        p = sub.add_parser(name, description=note)
+        mod.add_arguments(p)
+        p.set_defaults(fn=mod.run)
 
     args = ap.parse_args(argv)
     if getattr(args, "end", None) is not None and args.end <= args.start:

@@ -8,8 +8,9 @@ Kernels (``aegis_tpu_torch/csrc/viterbi.cu``, CUDA C++ for sm_90a):
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor; there is no fallback between the two.  Each
 kernel launch adds one to ``LAUNCHES[name]``, records its batch size B in
-``LAST_BATCH[name]`` and adds B to ``SEQUENCES[name]``, so a run can show
-that it went through the kernels, and with how many sequences.  The counts
+``LAST_BATCH[name]``, adds B to ``SEQUENCES[name]`` and adds one to
+``SHAPES[name][shape]``, so a run can show that it went through the
+kernels, with how many sequences and at which shapes.  The counts
 and the build are shared by every thread of a process (the REST server runs
 requests in threads), so each is updated under a lock.
 
@@ -51,6 +52,9 @@ LAST_BATCH = {"viterbi_fwd": 0, "viterbi_back": 0}
 # the sequences launched in all (the sum of B over the launches): equal to
 # LAUNCHES where every launch had B = 1, as on the live path
 SEQUENCES = {"viterbi_fwd": 0, "viterbi_back": 0}
+# launches by shape: (B, T, n, w) for the forward kernel, (B, T, n) for the
+# backtrace
+SHAPES = {"viterbi_fwd": {}, "viterbi_back": {}}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "viterbi.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aegis_tpu_torch"
@@ -165,12 +169,13 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def _count(name: str, B: int) -> None:
-    """One launch of kernel ``name`` at batch size B."""
+def _count(name: str, shape: tuple) -> None:
+    """One launch of kernel ``name`` at ``shape``, batch size first."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
-        LAST_BATCH[name] = B
-        SEQUENCES[name] += B
+        LAST_BATCH[name] = shape[0]
+        SEQUENCES[name] += shape[0]
+        SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -389,7 +394,7 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
     tile, cluster = pick_forward_variant(B, props.multi_processor_count)
     out = _launch_fwd(log_obs_v, log_obs_u, tab, n, w, log_stay, log_switch,
                       tile, cluster, max_shared_memory(dev))
-    _count("viterbi_fwd", B)
+    _count("viterbi_fwd", (B, T, n, w))
     return out
 
 
@@ -422,7 +427,7 @@ def viterbi_back(delta_last: torch.Tensor, psi_v: torch.Tensor,
             maps.data_ptr(), states.data_ptr(), B, T, n, BACK_CHUNK,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "viterbi_back")
-    _count("viterbi_back", B)
+    _count("viterbi_back", (B, T, n))
     return states
 
 

@@ -30,7 +30,6 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Union
 
 import numpy as np
-import torch
 
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig
@@ -41,6 +40,7 @@ from aegis_tpu_torch.engine.turbo import (run_analyze_streamed,
 from aegis_tpu_torch.io.audio import load_audio as _load_audio
 from aegis_tpu_torch.midi.encode import events_to_midi
 from aegis_tpu_torch.utils.logging import get_logger
+from aegis_tpu_torch.utils.prof import phase
 
 log = get_logger("Aegis")
 
@@ -169,7 +169,7 @@ class AegisEngine:
 
         log.info(f"Perception Phase ({self.device}, turbo={turbo_mode}, "
                  f"{len(y)/self.sr:.1f}s)")
-        with torch.profiler.record_function("aegis.perception"):
+        with phase("aegis.perception", quiet=True):
             if pitch_backend == "neural":
                 out = analyze_neural(y, self.audio, rake_sensitivity,
                                      turbo_mode, kwargs.get("fetch_mel", True),
@@ -201,7 +201,7 @@ class AegisEngine:
     def extract_events(self, raw_data: Dict, output_mid=None,
                        **kwargs) -> List[dict]:
         """Logic Filter Layer: fast re-runnable event extraction + MIDI encode."""
-        with torch.profiler.record_function("aegis.extract"):
+        with phase("aegis.extract", quiet=True):
             events = extract_events_v1(
                 rake_mask=raw_data["rake_mask"],
                 f0=raw_data["f0"],

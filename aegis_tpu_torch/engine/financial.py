@@ -21,13 +21,13 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
-import torch
 
 from aegis_tpu_torch.config import AudioConfig, PyinConfig
 from aegis_tpu_torch.engine.engine import normalize_turbo_mode
 from aegis_tpu_torch.io.audio import load_audio as _load_audio
 from aegis_tpu_torch.midi.encode import events_to_midi_financial
 from aegis_tpu_torch.utils.logging import get_logger
+from aegis_tpu_torch.utils.prof import phase
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core.events import extract_events_financial
 from aegis_tpu_torch.engine.engine import analyze_neural, analyze_pyin
@@ -74,7 +74,7 @@ class AegisFinancialEngine:
         turbo_mode = normalize_turbo_mode(
             kwargs.get("turbo_mode", False), len(y), self.sr,
             kwargs.get("stream_threshold_s", 240.0))
-        with torch.profiler.record_function("financial.perception"):
+        with phase("financial.perception", quiet=True):
             if pitch_backend == "neural":
                 out = analyze_neural(
                     y, self.audio, kwargs.get("rake_sensitivity", 0.6),

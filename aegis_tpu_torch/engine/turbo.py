@@ -38,6 +38,7 @@ from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _GTR_ROWS, _INT_ROWS,
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.pyin import pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
+from aegis_tpu_torch.utils.prof import phase
 
 
 def _slab_span(tile_frames: int, halo: int, hop: int, frame_length: int) -> int:
@@ -246,7 +247,7 @@ def analyze_audio_sharded(
         f0_full = torch.where(out["voiced_flag"], out["f0"],
                               float("nan")).reshape(b, L)
         probs_full = out["voiced_probs"].reshape(b, L)
-        with torch.profiler.record_function("aegis.trend"):
+        with phase("aegis.trend", quiet=True):
             fin = trend.analyze_pitch_financial(f0_full)
             combined = probs_full * 0.5 + fin["confidence"] * 0.5
             thr = trend.adaptive_confidence_threshold(combined)  # (b,)
@@ -511,7 +512,7 @@ def run_analyze_poly_turbo(
                                  true_len=ys2.shape[1])
 
     tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, n_mels, device)
-    with torch.profiler.record_function("aegis.poly_program"):
+    with phase("aegis.poly_program", quiet=True):
         packed = analyze_poly_sharded(
             upload(y16, device), upload(scale, device), upload(edge, device),
             hop_length, max_voices, tables, n_tiles, tile, halo)

@@ -1,7 +1,8 @@
-"""PitchNet inference (PyTorch): the learned monophonic pitch tracker behind
-``pitch_backend="neural"``.
+"""PitchNet (PyTorch): the learned monophonic pitch tracker behind
+``pitch_backend="neural"``, its inference programs and its training step.
 
-Counterpart of ``aegis_tpu/models/pitchnet.py`` up to its trainer.  A small
+Counterpart of ``aegis_tpu/models/pitchnet.py`` (the loop that trains it is
+``models/train.py``; the multi-device batch program is not ported).  A small
 spectrum-input MLP maps a 2048-sample window's standardized log-magnitude
 spectrum to a 192-bin pitch distribution (25-cent bins from one semitone
 below E2) and a voicing logit.  A whole track is one program on the device:
@@ -21,9 +22,11 @@ one scale a track and reproduces the fused program's rows.
 
 The checkpoint is the JAX package's, copied byte for byte to
 ``models/weights/pitchnet_v1.npz``; ``params_from_numpy`` maps its flax
-tree onto ``PitchNet``'s parameters (``Linear.weight = kernel.T``).  The
-matmuls run in float32 with TF32 off (``resolve_device``).  The NumPy
-oracle of the post-processing is ``ref/pitchnet_post_ref.py``.
+tree onto ``PitchNet``'s parameters (``Linear.weight = kernel.T``) and
+``params_to_numpy`` back, so ``save_params`` writes the JAX layout.  The
+matmuls run in float32 with TF32 off (``resolve_device``), the training
+step's too.  The NumPy oracle of the post-processing is
+``ref/pitchnet_post_ref.py``.
 """
 
 from __future__ import annotations
@@ -150,8 +153,8 @@ def load_params(path: Optional[str] = None) -> Dict:
     if ver != FEATURE_VERSION:  # includes pre-metadata checkpoints (None)
         raise ValueError(
             f"checkpoint {path} has feature_version {ver}, this build "
-            f"expects {FEATURE_VERSION}; retrain with the JAX package's "
-            f"trainer (aegis_tpu/models/train.py)")
+            f"expects {FEATURE_VERSION}; retrain with "
+            f"python -m aegis_tpu_torch train")
     if hidden is not None and tuple(hidden) != HIDDEN:
         raise ValueError(
             f"checkpoint {path} was trained with hidden={tuple(hidden)}, "
@@ -793,3 +796,210 @@ def run_analyze_neural(
     return fetch_analyze_neural(dispatch_analyze_neural(
         y, sr, hop_length, params, rake_sensitivity, n_fft, n_mels,
         fetch_mel, financial, use_guitar_filters, transport, device))
+
+
+# ---------------------------------------------------------------- training
+#
+# Counterpart of the JAX package's flax / optax trainer.  The loop lives in
+# models/train.py; everything a step runs is here, on the device of the
+# net and the clip bank, with its random state in an explicit
+# torch.Generator on that device.
+
+
+def init_params(seed: int = 0, hidden: Tuple[int, ...] = HIDDEN,
+                device="cuda") -> PitchNet:
+    """A fresh ``PitchNet`` on ``device`` with flax ``Dense``'s default
+    init, not ``nn.Linear``'s: each weight from a normal truncated at two
+    of its sigma = sqrt(1 / fan_in) / 0.87962566 (so its std is
+    sqrt(1 / fan_in)), each bias zero.  Drawn from a generator on
+    ``device`` seeded with ``seed``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    net = PitchNet(hidden).to(device)
+    with torch.no_grad():
+        for layer in (*net.trunk, net.pitch, net.voiced):
+            sigma = float(np.sqrt(1.0 / layer.in_features)) / 0.87962566103423978
+            nn.init.trunc_normal_(layer.weight, 0.0, sigma, -2.0 * sigma,
+                                  2.0 * sigma, generator=gen)
+            layer.bias.zero_()
+    return net
+
+
+def params_to_numpy(net: PitchNet) -> Dict:
+    """The inverse of ``params_from_numpy``: the flax tree
+    ``{"Dense_k": {"kernel": W.T, "bias": b}}`` of float32 NumPy arrays."""
+    layers = (*net.trunk, net.pitch, net.voiced)
+    return {f"Dense_{k}": {
+        "kernel": layer.weight.detach().cpu().numpy().T.copy(),
+        "bias": layer.bias.detach().cpu().numpy().copy()}
+        for k, layer in enumerate(layers)}
+
+
+def pitch_target(f0_hz: torch.Tensor, voiced: torch.Tensor) -> torch.Tensor:
+    """Gaussian-blurred one-hot over the cents grid (sigma ~30 cents);
+    uniform for unvoiced frames (they carry no pitch loss anyway).  The
+    divisions by constants are products with their float32 reciprocals,
+    as XLA compiles the JAX trainer's (ROADMAP "Bit-level traps")."""
+    ratio = torch.clamp_min(f0_hz, 1e-3) * np.float32(1.0 / FMIN_HZ)
+    cents = 1200.0 * torch.log2(ratio)
+    centers = torch.from_numpy(bin_centers_cents()).to(f0_hz.device)
+    d = (centers[None, :] - cents[:, None]) * np.float32(
+        1.0 / (1.2 * CENTS_PER_BIN))
+    g = torch.exp(-0.5 * d * d)
+    g = g / (g.sum(-1, keepdim=True) + 1e-9)
+    uni = torch.full((1, N_BINS), 1.0 / N_BINS, device=f0_hz.device)
+    return torch.where(voiced[:, None], g, uni)
+
+
+def loss_fn(net: PitchNet, windows: torch.Tensor, f0_hz: torch.Tensor,
+            voiced: torch.Tensor,
+            label_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax cross-entropy on the blurred cents target over voiced frames
+    plus sigmoid cross-entropy on voicing (optax's two losses), each a
+    weighted mean.  ``label_w`` (B,) in [0, 1] down-weights ambiguous
+    frames (decay boundaries, reverb tails; models/data.py builds it);
+    None = all 1.  The features carry no gradient: only the net trains."""
+    with torch.no_grad():
+        feats = featurize(windows)
+    logits, vlogit = net(feats)
+    target = pitch_target(f0_hz, voiced)
+    ce = -(target * torch.log_softmax(logits, dim=-1)).sum(-1)  # (B,)
+    vmask = voiced.to(torch.float32)
+    w = torch.ones_like(vmask) if label_w is None else label_w
+    pw = vmask * w
+    pitch_loss = (ce * pw).sum() / (pw.sum() + 1e-6)
+    vce = F.binary_cross_entropy_with_logits(vlogit, vmask, reduction="none")
+    voiced_loss = (vce * w).sum() / (w.sum() + 1e-6)
+    return pitch_loss + voiced_loss
+
+
+def crop_batch(tracks16: torch.Tensor, scale: torch.Tensor,
+               f0_hz: torch.Tensor, voiced: torch.Tensor, ci: torch.Tensor,
+               off: torch.Tensor, label_w: Optional[torch.Tensor] = None):
+    """The (clip ``ci``, sample offset ``off``) windows of the resident
+    int16 bank, gathered on its device and scaled to float32; labels (and
+    per-block loss weights, when given) read at the window centre."""
+    from aegis_tpu_torch.models.data import LABEL_HOP
+
+    idx = off[:, None] + torch.arange(WIN, device=off.device)[None, :]
+    wins = tracks16[ci[:, None], idx].to(torch.float32) * scale[ci][:, None]
+    lab = torch.clamp((off + WIN // 2) // LABEL_HOP, 0, f0_hz.shape[1] - 1)
+    w = None if label_w is None else label_w[ci, lab]
+    return wins, f0_hz[ci, lab], voiced[ci, lab], w
+
+
+def sample_windows(gen: torch.Generator, tracks16: torch.Tensor,
+                   scale: torch.Tensor, f0_hz: torch.Tensor,
+                   voiced: torch.Tensor, batch: int,
+                   label_w: Optional[torch.Tensor] = None):
+    """Device-side batch sampler: random (clip, offset) crops of the
+    resident bank (``crop_batch``).  35 % of the offsets come from the
+    attack region, [0, min(WIN, L - WIN + 1)): onset frames (half window
+    silence + pluck + early ringing) are the hardest voicing decisions and
+    only ~2 % of uniformly drawn offsets; the rest from [0, L - WIN + 1).
+    Upper bounds exclusive, as ``jax.random.randint``'s."""
+    n, L = tracks16.shape
+    dev = tracks16.device
+    ci = torch.randint(0, n, (batch,), generator=gen, device=dev)
+    off_uni = torch.randint(0, L - WIN + 1, (batch,), generator=gen,
+                            device=dev)
+    off_atk = torch.randint(0, min(WIN, L - WIN + 1), (batch,),
+                            generator=gen, device=dev)
+    atk = torch.rand((batch,), generator=gen, device=dev) < 0.35
+    off = torch.where(atk, off_atk, off_uni)
+    return crop_batch(tracks16, scale, f0_hz, voiced, ci, off, label_w)
+
+
+def lr_schedule(steps: int):
+    """optax's ``warmup_cosine_decay_schedule(0, 3e-4, warmup_steps=min(100,
+    steps // 10 + 1), decay_steps=steps, end_value=1e-5)`` as a function of
+    optax's count (0 for the first update): a linear warmup from 0, then a
+    cosine over ``decay_steps - warmup_steps`` down to the end value.  In
+    float32 and optax's own terms (the warmup is ``(0 - peak) * (1 - i / W)
+    + peak``), so step 1 runs at 2.999994e-06, not 3e-06."""
+    f32 = np.float32
+    peak, end = f32(3e-4), f32(1e-5)
+    warmup = min(100, steps // 10 + 1)
+    cos_steps = steps - warmup
+    alpha = end / peak
+
+    def lr(i: int) -> float:
+        if i < warmup:
+            return float(-peak * (f32(1.0) - f32(i) / f32(warmup)) + peak)
+        k = min(i - warmup, cos_steps)
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * f32(k)
+                                               / f32(cos_steps)))
+        return float(peak * ((f32(1.0) - alpha) * cosine + alpha))
+
+    return lr
+
+
+def init_train_state(seed: int = 0, hidden: Tuple[int, ...] = HIDDEN,
+                     lr=3e-4, device="cuda"):
+    """(net, optimizer): ``init_params`` and optax.adamw's update as
+    ``torch.optim.AdamW`` (betas 0.9 / 0.999, eps 1e-8, weight decay
+    1e-5).  ``lr`` a float or a schedule of the step index; ``train_on_batch``
+    sets the group's rate before each step."""
+    net = init_params(seed, hidden, device)
+    first = lr(0) if callable(lr) else lr
+    opt = torch.optim.AdamW(net.parameters(), lr=first, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-5)
+    return net, opt
+
+
+def train_on_batch(net: PitchNet, opt: torch.optim.Optimizer, lr: float,
+                   wins: torch.Tensor, f0_hz: torch.Tensor,
+                   voiced: torch.Tensor,
+                   label_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One AdamW step at rate ``lr`` on one batch of windows; the loss
+    before the step as a 0-d tensor on the device (no host sync)."""
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn(net, wins, f0_hz, voiced, label_w)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def make_train_step(batch: int = 256, lr=3e-4):
+    """The training step ``(net, opt, gen, step_idx, tracks16, scale, f0_hz,
+    voiced, label_w) -> loss``: sample a batch of crops on the bank's
+    device, featurize it, run the net, the loss, backward and the AdamW
+    update at ``lr(step_idx)`` (or the constant ``lr``).  The loss comes
+    back as a 0-d device tensor; nothing in the step waits for the card."""
+    sched = lr if callable(lr) else (lambda i: lr)
+
+    def step(net, opt, gen, step_idx, tracks16, scale, f0_hz, voiced,
+             label_w=None):
+        wins, f0b, vb, wb = sample_windows(gen, tracks16, scale, f0_hz,
+                                           voiced, batch, label_w)
+        return train_on_batch(net, opt, sched(step_idx), wins, f0b, vb, wb)
+
+    return step
+
+
+def save_params(net: PitchNet, path: str,
+                metrics: Optional[Dict] = None) -> str:
+    """The JAX package's checkpoint layout: the flax tree as float16 under
+    ``Dense_k/kernel`` and ``Dense_k/bias`` plus a ``__meta__`` JSON record
+    (feature version, architecture, bin grid, the training metrics), with
+    ``np.savez_compressed``; it loads in both packages' ``load_params``.
+    Returns the path written (np.savez appends .npz to bare names)."""
+    flat = {f"{layer}/{name}": np.asarray(v).astype(np.float16)
+            for layer, d in params_to_numpy(net).items()
+            for name, v in d.items()}
+    meta = {"feature_version": FEATURE_VERSION, "win": WIN,
+            "sr_native": SR_NATIVE, "n_bins": N_BINS,
+            "cents_per_bin": CENTS_PER_BIN, "fmin_hz": FMIN_HZ,
+            "hidden": list(HIDDEN), "metrics": metrics or {}}
+    flat["__meta__"] = np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8).copy()
+    if not path.endswith(".npz"):
+        path += ".npz"
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    np.savez_compressed(path, **flat)
+    return path

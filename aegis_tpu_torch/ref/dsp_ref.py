@@ -1,10 +1,10 @@
-"""NumPy framing, STFT, mel spectrogram, dB scaling and pitch conversion,
-the part of ``aegis_tpu/ref/dsp_ref.py`` that the event extraction and the
-facade's ``load_audio`` use.
+"""NumPy reference DSP: framing, STFT, mel spectrogram, dB scaling, RMS
+(a copy of ``aegis_tpu/ref/dsp_ref.py``).
 
-Behavioral contract of librosa: centered frames with reflect padding,
-periodic Hann window, power mel spectrogram with the Slaney filterbank,
-power_to_db with ref=max and top_db=80.
+Behavioral contract matches the librosa calls in the reference engine
+(aegis_engine.py:22-27, :70): centered frames with reflect padding, periodic
+Hann window, power mel spectrogram with Slaney filterbank, power_to_db with
+ref=max and top_db=80, RMS over zero-padded centered frames.
 """
 
 from __future__ import annotations
@@ -60,5 +60,16 @@ def amplitude_to_db(S: np.ndarray, ref: float | None = None, amin: float = 1e-5,
     return power_to_db(S**2, ref=ref**2, amin=amin**2, top_db=top_db)
 
 
+def rms(y: np.ndarray, frame_length: int = 2048, hop_length: int = 512) -> np.ndarray:
+    """Frame-wise root-mean-square energy with centered zero padding,
+    shape (T,)."""
+    frames = frame_signal(y, frame_length, hop_length, pad_mode="constant")
+    return np.sqrt(np.mean(frames.astype(np.float64) ** 2, axis=-1)).astype(np.float32)
+
+
 def hz_to_midi(hz):
     return 12.0 * np.log2(np.asanyarray(hz) / 440.0) + 69.0
+
+
+def midi_to_hz(midi):
+    return 440.0 * 2.0 ** ((np.asanyarray(midi) - 69.0) / 12.0)

@@ -8,8 +8,8 @@ Drives the port's main paths, the v1 WAV -> MIDI transcription
 financial (v2) engine, the tiled, streamed and folder-batch modes, the
 live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
-the self-verification loops and the REST server, in twenty-five phases;
-each raises on failure:
+the self-verification loops, the REST server, the PitchNet trainer and the
+validation tools, in twenty-seven phases; each raises on failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -177,6 +177,34 @@ each raises on failure:
                medians of 5 request wall times beside the facade's, their
                difference, and device busy ms and launches of one profiled
                request.
+ 26. train   — models/train.py::train at the train command's defaults (3000
+               steps, batch 256, 2048 clips x 16 384 samples, hidden
+               (512, 256), seed 0), the checkpoint written to a temporary
+               directory: the data-synthesis seconds, the logged losses
+               (finite, the last under half the first), rpa_50c and
+               voicing_acc no more than TRAIN_SLACK under the JAX trainer's
+               on the CPU (JAX_CPU_TRAIN); the checkpoint through load_params
+               and run_analyze_neural on the card tracks 110 / 196 / 440 Hz
+               tones within 50 cents, voiced share > 0.5; two 50-step runs
+               from one seed give bitwise-equal parameters; the warm ms a
+               step, device busy ms and launches a step (torch.profiler over
+               20 steps); 8 steps on the card and on the CPU from the same
+               parameters and crops (card_vs_cpu_steps): parameters within
+               1e-5, each loss within 1e-5 of the CPU's, relative; no
+               device range counted as a kernel; the packaged checkpoint's
+               sha256 unchanged; no Viterbi launch.
+ 27. validate — tools/validate_device.py::validate(include_bench=False) on
+               the card: the gate passes, every v1 and financial F1 against
+               the oracle 1.0, every truth and poly F1 within 0.01 of the
+               JAX tool's on the CPU; tools/benchmark.py::run_benchmark(0.4)
+               beats its naive baseline; inharmonic_sweep --quick's rows
+               within 0.01 of the JAX tool's; then each clip the three
+               tools run (the gating clips at 22 050 and 44 100 Hz, the
+               scale track, the benchmark's scale, the sweep's two
+               melodies): one launch of each kernel a v1 and a financial
+               call at the clip's shape (B = 1), both kernels identical to
+               their plain versions on its observations, and timed there;
+               the tools launched at no other shape.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -191,6 +219,7 @@ the package is missing.
 from __future__ import annotations
 
 import base64
+import hashlib
 import io
 import json
 import os
@@ -230,15 +259,21 @@ from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
 from aegis_tpu_torch.io import write_wav
 from aegis_tpu_torch.midi import (MidiFile, MidiMessage, MidiTrack,
                                   midi_to_notes, second2tick)
+from aegis_tpu_torch.models import pitchnet as tpn
+from aegis_tpu_torch.models import train as ttrain
+from aegis_tpu_torch.models.data import make_clips
 from aegis_tpu_torch.models.pitchnet import (run_analyze_neural,
                                              run_analyze_neural_streamed)
 from aegis_tpu_torch.ref.poly_ref import peel_voices_ref
+from aegis_tpu_torch.tools import (benchmark, inharmonic_sweep,
+                                   validate_device)
 from aegis_tpu_torch.tools.bench_viterbi import (band_and_table, cuda_ms,
                                                  forward_variant,
                                                  synthetic_inputs)
 from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
                                               generate_chord_progression,
                                               generate_mixed_clip,
+                                              generate_scale_benchmark,
                                               generate_test_track)
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
 
@@ -570,6 +605,8 @@ def reset_counts() -> None:
     for counts in (pyin_cuda.LAUNCHES, pyin_cuda.SEQUENCES):
         for k in counts:
             counts[k] = 0
+    for shapes in pyin_cuda.SHAPES.values():
+        shapes.clear()
 
 
 def expect_launches(name: str, counts: dict, batch: dict, n: int,
@@ -1069,7 +1106,9 @@ def profile_kernels(fn, n: int = 1):
                 and e.device_type != cuda)
     kernels: dict = {}
     for e in events:
-        if (e.device_type == cuda and not e.name.startswith("aegis.")
+        # ranges on the device's timeline (the engines' phases, torch.optim's
+        # Optimizer.step#...) are user annotations, not kernels
+        if (e.device_type == cuda and not e.is_user_annotation
                 and e.time_range.start >= mark.time_range.start):
             k = kernels.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.elapsed_us()
@@ -2616,6 +2655,320 @@ def phase_serve(dev, tracks, y10, errs, total: dict, per_call: dict) -> dict:
     return shapes
 
 
+# The JAX trainer on the CPU at the train command's defaults (3000 steps,
+# batch 256, 2048 clips x 16 384 samples, seed 0), run once as
+#   JAX_PLATFORMS=cpu python -m aegis_tpu.models.train --steps 3000 \
+#       --out <a temporary path>
+# its final JSON line and its first logged loss (step 0).  The port's
+# freshly trained net on the card is gated at these less TRAIN_SLACK.
+JAX_CPU_TRAIN = {"loss": 1.6413973569869995, "steps": 3000,
+                 "rpa_50c": 0.9274486094316807,
+                 "voicing_acc": 0.9232851985559567,
+                 "median_cents_err": 4.273811340332031, "n_eval_frames": 827}
+JAX_CPU_TRAIN_FIRST_LOSS = 6.0545
+TRAIN_SLACK = 0.03
+# The JAX tools on the CPU: tools/validate_device.py::validate(
+# include_bench=False) (every F1 of every clip is 1.0), and
+# tools/inharmonic_sweep.py's --quick rows (sweep(b_values=(0.0, 1e-4),
+# mono_duration=10.0)).  The port's tools on the card are held to these.
+JAX_CPU_VALIDATE_CLIPS = ("synthetic_track", "scale_track",
+                          "synthetic_track_44k")
+JAX_CPU_VALIDATE_POLY = ("chord_progression_s1_22050",
+                         "chord_progression_s3_22050",
+                         "chord_progression_s7_22050",
+                         "chord_progression_s7_44100",
+                         "chord_progression_s8_44100",
+                         "chord_progression_s10_44100")
+JAX_CPU_SWEEP_QUICK = {"0": {"v1": 0.9818, "financial": 0.9818,
+                             "neural": 0.9818, "poly_mean": 1.0,
+                             "poly_min": 1.0},
+                       "0.0001": {"v1": 0.9492, "financial": 0.9492,
+                                  "neural": 0.9492, "poly_mean": 1.0,
+                                  "poly_min": 1.0}}
+PACKAGED_WEIGHTS = "aegis_tpu_torch/models/weights/pitchnet_v1.npz"
+
+
+def tone(sr: int, f: float, dur: float = 1.0, decay: float = 2.0):
+    """tests/test_pitchnet.py's clean tone: three harmonics, decaying."""
+    t = np.arange(int(sr * dur)) / sr
+    env = np.exp(-decay * t)
+    y = env * sum(a * np.sin(2 * np.pi * f * (k + 1) * t)
+                  for k, a in enumerate([1.0, 0.5, 0.25]))
+    return (0.8 * y / np.max(np.abs(y))).astype(np.float32)
+
+
+def sha256_of(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def train_from_seed(dev, bank, batch: int, steps: int, seed: int, lr):
+    """``steps`` training steps of a fresh net from ``seed``, its crops drawn
+    on the card's generator: (net, optimizer, generator, step function)."""
+    net, opt = tpn.init_train_state(seed, lr=lr, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    step = tpn.make_train_step(batch, lr=lr)
+    for i in range(steps):
+        step(net, opt, gen, i, *bank)
+    return net, opt, gen, step
+
+
+def card_vs_cpu_steps(dev, bank_cpu, batch: int, lr, steps: int = 8,
+                      seed: int = 8):
+    """``steps`` AdamW steps on the card and on the CPU from the same
+    parameters and the same explicit crops of ``bank_cpu`` (tracks, scale,
+    f0, voicing, label weights): (the largest parameter difference, the
+    largest loss difference relative to the CPU's loss)."""
+    bank = [t.to(dev) for t in bank_cpu]
+    n_clips, clip_len = bank_cpu[0].shape
+    cpu_net, cpu_opt = tpn.init_train_state(0, lr=lr, device="cpu")
+    card_net, card_opt = tpn.init_train_state(0, lr=lr, device=dev)
+    card_net.load_state_dict(cpu_net.state_dict())
+    rng = np.random.default_rng(seed)
+    loss_err = 0.0
+    for i in range(steps):
+        ci = torch.from_numpy(rng.integers(0, n_clips, batch))
+        off = torch.from_numpy(rng.integers(0, clip_len - tpn.WIN + 1, batch))
+        lc = float(tpn.train_on_batch(cpu_net, cpu_opt, lr(i), *tpn.crop_batch(
+            *bank_cpu[:4], ci, off, bank_cpu[4])))
+        lg = float(tpn.train_on_batch(card_net, card_opt, lr(i),
+                                      *tpn.crop_batch(*bank[:4], ci.to(dev),
+                                                      off.to(dev), bank[4])))
+        loss_err = max(loss_err, abs(lc - lg) / lc)
+    param_err = max(float((p.detach().cpu() - q.detach()).abs().max())
+                    for p, q in zip(card_net.parameters(),
+                                    cpu_net.parameters()))
+    return param_err, loss_err
+
+
+def phase_train(dev) -> dict:
+    """The trainer at the train command's defaults on the card, then its
+    parts: a warm step, its device work, determinism, the card against the
+    CPU on the same crops, and the fresh net on clean tones."""
+    before = sha256_of(PACKAGED_WEIGHTS)
+    records = []
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "pitchnet.npz")
+        (net, metrics), counts, _ = run_counted(
+            lambda: ttrain.train(out=out, device=dev, log=records.append))
+        tree = tpn.load_params(out)
+    viterbi_launches_zero("train")
+    data_s = records[0]["data_s"]
+    logged = [r["loss"] for r in records[1:]]
+    emit({"phase": "train", "metrics": metrics, "data_seconds": data_s,
+          "first_loss": logged[0], "last_loss": logged[-1],
+          "jax_cpu": JAX_CPU_TRAIN, "jax_cpu_first_loss":
+          JAX_CPU_TRAIN_FIRST_LOSS, "nvidia_smi": CARD["nvidia_smi"]})
+    if not (np.isfinite(logged).all() and logged[-1] < 0.5 * logged[0]):
+        raise AssertionError(f"train: loss {logged[0]} -> {logged[-1]}")
+    for k in ("rpa_50c", "voicing_acc"):
+        if metrics[k] < JAX_CPU_TRAIN[k] - TRAIN_SLACK:
+            raise AssertionError(f"train: {k} {metrics[k]} < the JAX "
+                                 f"trainer's {JAX_CPU_TRAIN[k]} - "
+                                 f"{TRAIN_SLACK}")
+
+    # the fresh checkpoint through the neural program on the card
+    fresh = tpn.pitchnet_from_numpy(tree, dev)
+    for f in (110.0, 196.0, 440.0):
+        res = tpn.run_analyze_neural(tone(tpn.SR_NATIVE, f), tpn.SR_NATIVE,
+                                     512, fresh, fetch_mel=False, device=dev)
+        v = res["voiced_flag"]
+        cents = float(abs(1200 * np.log2(np.median(res["f0"][v]) / f))) \
+            if v.any() else float("inf")
+        emit({"phase": "train", "tone_hz": f, "voiced_share": float(v.mean()),
+              "median_cents_err": cents})
+        if v.mean() <= 0.5 or cents >= 50:
+            raise AssertionError(f"train: the fresh net on {f} Hz: voiced "
+                                 f"{v.mean()}, {cents} cents")
+
+    # the step's parts on a bank of 256 clips (a step's work does not
+    # depend on the bank's size)
+    d = make_clips(256, 16384, seed=1)
+    bank_cpu = [torch.from_numpy(d[k]) for k in ("tracks", "scale", "f0_hz",
+                                                 "voiced", "label_w")]
+    bank = [t.to(dev) for t in bank_cpu]
+    lr = tpn.lr_schedule(3000)
+    a, opt, gen, step = train_from_seed(dev, bank, 256, 50, 0, lr)
+    b = train_from_seed(dev, bank, 256, 50, 0, lr)[0]
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                 b.parameters())):
+        raise AssertionError("train: two 50-step runs from one seed differ")
+    it = iter(range(50, 10 ** 6))
+    step_ms = cuda_ms(lambda: [step(a, opt, gen, next(it), *bank)
+                               for _ in range(20)]) / 20
+    kernels, host_ms = profile_kernels(
+        lambda: step(a, opt, gen, next(it), *bank), 20)
+    if any(k.startswith("Optimizer.") for k in kernels):
+        raise AssertionError("train: torch.optim's range counted as a kernel")
+    busy = sum(us for us, _ in kernels.values()) / 20 / 1e3
+    launches = sum(n for _, n in kernels.values()) / 20
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+
+    # 8 steps on the card and on the CPU from the same parameters and crops
+    param_err, loss_err = card_vs_cpu_steps(dev, bank_cpu, 256, lr)
+    row = {"phase": "times", "what": "train_step", "batch": 256,
+           "hidden": list(tpn.HIDDEN), "median_ms_a_step": step_ms,
+           "steps_a_second": 1e3 / step_ms,
+           "train_s_3000_steps": metrics["train_s"],
+           "host_ms_a_step_profiled": host_ms,
+           "device_busy_ms_a_step": busy, "launches_a_step": launches,
+           "idle_share": 1.0 - busy / step_ms,
+           "top_device_kernels": [[k[:70], us / 20 / 1e3, n // 20]
+                                  for k, (us, n) in top],
+           "eight_steps_card_vs_cpu_param_max_abs_err": param_err,
+           "eight_steps_card_vs_cpu_loss_max_rel_err": loss_err,
+           "nvidia_smi": CARD["nvidia_smi"]}
+    emit(row)
+    if param_err > 1e-5 or loss_err > 1e-5:
+        raise AssertionError(f"train: 8 steps on the card vs the CPU differ "
+                             f"by {param_err} (parameters), {loss_err} "
+                             "(loss, relative)")
+    if sha256_of(PACKAGED_WEIGHTS) != before:
+        raise AssertionError("train: the packaged checkpoint changed")
+    return row
+
+
+def validate_clips() -> dict:
+    """Every clip that validate(include_bench=False), run_benchmark(0.4) and
+    sweep --quick run through a v1 and a financial call: name -> (rate,
+    audio, what the kernels row calls it)."""
+    return {
+        "synthetic_track_22050": (
+            22050, generate_test_track(sr=22050)[0],
+            "validate_device: the Karplus-Strong gating clip at 22 050 Hz"),
+        "scale_track_22050": (
+            22050, generate_scale_benchmark(sr=22050)[0],
+            "validate_device: the scale track (0.5 s a note) at 22 050 Hz"),
+        "synthetic_track_44100": (
+            44100, generate_test_track(sr=44100)[0],
+            "validate_device: the Karplus-Strong gating clip at 44 100 Hz"),
+        "benchmark_scale_22050": (
+            22050, generate_scale_benchmark(sr=22050, note_duration=0.4)[0],
+            "run_benchmark(0.4): the scale track (0.4 s a note) at "
+            "22 050 Hz"),
+        "sweep_melody_B0_22050": (
+            22050, generate_bench_track(10.0, sr=22050, B=0.0),
+            "inharmonic_sweep --quick: the 10 s melody, B = 0, at 22 050 Hz"),
+        "sweep_melody_B1e-4_22050": (
+            22050, generate_bench_track(10.0, sr=22050, B=1e-4),
+            "inharmonic_sweep --quick: the 10 s melody, B = 1e-4, at "
+            "22 050 Hz"),
+    }
+
+
+def launched_shapes() -> dict:
+    """Each kernel's launches by shape since the counts were last reset."""
+    return {k: dict(v) for k, v in pyin_cuda.SHAPES.items()}
+
+
+def phase_validate(dev, errs: dict, total: dict) -> list:
+    """The validation tools on the card: validate_device's quick gate, the
+    benchmark, the quick inharmonicity sweep, each F1 against the JAX tools'
+    on the CPU; then every clip they run: one launch of each kernel a v1
+    call and a financial call, both kernels against their plain versions on
+    its observations, timed.  Returns the kernels line's rows, one a clip."""
+    tools = {}   # tool -> each kernel's launches by shape in its run
+    t0 = time.perf_counter()
+    res, counts, batch = run_counted(
+        lambda: validate_device.validate(include_bench=False, device=dev))
+    validate_s = time.perf_counter() - t0
+    tools["validate"] = launched_shapes()
+    # three clips, a v1 and a financial call each
+    expect_launches("validate", counts, batch, 6, 1)
+    add_counts(total, counts)
+    emit({"phase": "validate", "seconds": validate_s, **res,
+          "launches": counts})
+    if not res["pass"]:
+        raise AssertionError(f"validate: the gate failed {res}")
+    for name in JAX_CPU_VALIDATE_CLIPS:
+        row = res["clips"][name]
+        if row["v1_f1"] != 1.0 or row["financial_f1"] != 1.0:
+            raise AssertionError(f"validate {name}: {row} (the oracle F1 "
+                                 "must be 1.0)")
+        for k in ("pyin_truth_f1", "fin_truth_f1", "neural_truth_f1",
+                  "neural_f1"):
+            if abs(row[k] - 1.0) > TRUTH_SLACK:
+                raise AssertionError(f"validate {name}: {k} {row[k]}, the "
+                                     "JAX tool's is 1.0")
+    for name in JAX_CPU_VALIDATE_POLY:
+        pf1 = res["clips"][name]["poly_truth_f1"]
+        if abs(pf1 - 1.0) > TRUTH_SLACK:
+            raise AssertionError(f"validate {name}: poly truth F1 {pf1}, "
+                                 "the JAX tool's is 1.0")
+
+    bench, counts, batch = run_counted(
+        lambda: benchmark.run_benchmark(duration_per_note=0.4, device=dev))
+    tools["benchmark"] = launched_shapes()
+    expect_launches("benchmark", counts, batch, 1, 1)
+    add_counts(total, counts)
+    emit({"phase": "validate", "what": "benchmark", **bench})
+    if not bench["aegis"]["f1"] > bench["naive_baseline"]["f1"]:
+        raise AssertionError(f"benchmark: the engine does not beat the "
+                             f"naive baseline {bench}")
+
+    t0 = time.perf_counter()
+    swept, counts, batch = run_counted(
+        lambda: inharmonic_sweep.sweep(b_values=(0.0, 1e-4),
+                                       mono_duration=10.0, device=dev))
+    sweep_s = time.perf_counter() - t0
+    tools["sweep"] = launched_shapes()
+    # two values of B, a v1 and a financial call each
+    expect_launches("sweep", counts, batch, 4, 1)
+    add_counts(total, counts)
+    emit({"phase": "validate", "what": "inharmonic_sweep --quick",
+          "seconds": sweep_s, **swept, "jax_cpu": JAX_CPU_SWEEP_QUICK})
+    for b, ref in JAX_CPU_SWEEP_QUICK.items():
+        for k, v in ref.items():
+            got = swept["f1_by_B"][b][k]
+            if abs(got - v) > TRUTH_SLACK:
+                raise AssertionError(f"sweep B={b} {k}: F1 {got}, the JAX "
+                                     f"tool's {v}")
+
+    # every clip the tools ran: its launches a call, at its shape; both
+    # kernels against their plain versions on its observations, timed
+    rows, compared = [], set()
+    for name, (sr, y, path) in validate_clips().items():
+        obs, vprob, tables = real_obs(y, sr, dev)
+        T, n = obs.shape
+        w = tables.half_width
+        shapes = {"viterbi_fwd": {(1, T, n, w): 1},
+                  "viterbi_back": {(1, T, n): 1}}
+        eng = AegisEngine(sample_rate=sr, device=dev)
+        fin = AegisFinancialEngine(sample_rate=sr, device=dev)
+        for what, fn in (("v1", lambda: eng.audio_to_midi(y, None)),
+                         ("financial", lambda: fin.analyze(y,
+                                                           fetch_mel=False))):
+            _, counts, batch = run_counted(fn)
+            expect_launches(f"validate {what} {name}", counts, batch, 1, 1)
+            if launched_shapes() != shapes:
+                raise AssertionError(f"validate {what} {name}: launched at "
+                                     f"{launched_shapes()}, expected "
+                                     f"{shapes}")
+        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
+        compare_kernels(f"validate_{name}", lo_v, lo_u, tables.band,
+                        tables.band_tab, w, 1.0, errs)
+        row = time_kernels(obs[None], vprob[None], tables, False)
+        emit({"phase": "times", "what": "viterbi_validate", "clip": name,
+              "sr": sr, **row["shape"], "median_ms": row})
+        rows.append((f"{path}; a v1 or a financial call", counts, row))
+        compared |= {(k, s) for k, v in shapes.items() for s in v}
+
+    # the tools' runs launched at no shape that was not held to the plain
+    # versions above
+    split = {tool: {k: {str(s): c for s, c in v.items()}
+                    for k, v in got.items()} for tool, got in tools.items()}
+    emit({"phase": "validate", "what": "launches_by_shape", **split})
+    for tool, got in tools.items():
+        for k, v in got.items():
+            missed = [s for s in v if (k, s) not in compared]
+            if missed:
+                raise AssertionError(f"{tool}: {k} launched at {missed}, "
+                                     "held to no plain version")
+    return rows
+
+
 def add_counts(total: dict, counts: dict) -> None:
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -2711,6 +3064,11 @@ def main() -> int:
     # the REST server on the card: every request through its HTTP routes
     serve_ms = timed("serve", phase_serve, dev, tracks, y10, errs, total,
                      per_call)
+
+    # the PitchNet trainer (no hand kernel: it launches neither) and the
+    # validation tools (their v1 and financial calls launch both)
+    timed("train", phase_train, dev)
+    validate_rows = timed("validate", phase_validate, dev, errs, total)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -2747,7 +3105,7 @@ def main() -> int:
         ("server /api/stream-* live v1, tile 24 / halo 8, 60 s at 44 100 Hz, "
          "one tile a launch; times at the shape above",
          per_call["serve_live_44100"], live_ms[(44100, 24, 8)]),
-    ] + [
+    ] + validate_rows + [
         (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
          "launch", per_call[("live", sr, tile, halo)],
          live_ms[(sr, tile, halo)])

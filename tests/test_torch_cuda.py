@@ -1,11 +1,15 @@
-"""The CUDA Viterbi kernels vs their plain PyTorch versions, and the
-polyphonic programs vs the CPU, on the card.
+"""The CUDA Viterbi kernels vs their plain PyTorch versions, the
+polyphonic programs, the PitchNet training step and the validate gate vs
+the CPU, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no jax, so on a machine with a card and no JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -438,3 +442,62 @@ def test_effect_chain_on_the_card_equals_the_cpu(cuda, preset):
     a = apply_effect_chain(x, EFFECT_PRESETS[preset], 44100, device=cuda)
     b = apply_effect_chain(x, EFFECT_PRESETS[preset], 44100, device="cpu")
     assert a.shape == x.shape and np.abs(a - b).max() <= 1e-4
+
+
+def _train_bank(dev, n=48, seed=2):
+    from aegis_tpu_torch.models.data import make_clips
+    d = make_clips(n, 8192, seed=seed)
+    return [torch.from_numpy(d[k]).to(dev)
+            for k in ("tracks", "scale", "f0_hz", "voiced", "label_w")]
+
+
+def _chip_smoke():
+    """chip_smoke.py, which holds the training checks that its train phase
+    runs at full size and these tests at a small one."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_equal_the_cpu(cuda):
+    """Eight AdamW steps of the full-width net on the same crops, from the
+    same parameters, on the card and on the CPU: parameters within 1e-5,
+    each loss within 1e-5 of the CPU's, relative."""
+    from aegis_tpu_torch.models import pitchnet as tpn
+
+    param_err, loss_err = _chip_smoke().card_vs_cpu_steps(
+        cuda, _train_bank("cpu"), 64, tpn.lr_schedule(20), seed=3)
+    assert param_err <= 1e-5 and loss_err <= 1e-5, (param_err, loss_err)
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_is_deterministic(cuda):
+    """Two 30-step runs from one seed (sampling on the card's generator)
+    give bitwise-equal parameters; another seed gives other ones."""
+    from aegis_tpu_torch.models import pitchnet as tpn
+
+    bank = _train_bank(cuda)
+    lr = tpn.lr_schedule(30)
+
+    def run(seed):
+        net = _chip_smoke().train_from_seed(cuda, bank, 64, 30, seed, lr)[0]
+        return [p.detach().cpu() for p in net.parameters()]
+
+    a, b, c = run(0), run(0), run(1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+
+
+@pytest.mark.cuda
+def test_validate_on_the_card(cuda):
+    """The quick F1 gate on the card passes with every oracle F1 at 1.0."""
+    from aegis_tpu_torch.tools.validate_device import validate
+
+    res = validate(include_bench=False, quiet=True, device=cuda)
+    assert res["pass"], res
+    assert all(row.get("v1_f1", 1.0) == 1.0
+               and row.get("financial_f1", 1.0) == 1.0
+               for row in res["clips"].values())

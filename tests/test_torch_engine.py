@@ -423,6 +423,38 @@ _POLY_PATHS = (
     "assert api('GET', '/api/health', {'probe_device': '1'})['platform'] == 'cpu'\n"
 )
 
+# the trainer, the validation tools and their oracle, the profiler; the
+# first two call scipy's resample_poly (make_clips' Karplus-Strong clips,
+# the neural backend at 44 100 Hz), which probes sys.modules['jax'] for an
+# array type and fails on the None test_port_never_imports_jax puts there
+_TRAIN_VALIDATE_PATHS = (
+    "from aegis_tpu_torch.models.train import train\n"
+    "from aegis_tpu_torch.tools.validate_device import validate\n"
+    "tnet, tm = train(steps=2, batch=8, clips=8, clip_len=4096, device='cpu')\n"
+    "assert tm['n_eval_frames'] > 0\n"
+    "assert validate(include_bench=False, quiet=True, device='cpu')['pass']\n")
+_TOOL_PATHS = (
+    "import torch\n"
+    "from aegis_tpu_torch.models import pitchnet as tpn\n"
+    "from aegis_tpu_torch.models.data import make_clips\n"
+    "from aegis_tpu_torch.tools.benchmark import run_benchmark\n"
+    "from aegis_tpu_torch.tools.inharmonic_sweep import sweep\n"
+    "from aegis_tpu_torch.utils.prof import device_trace, phase\n"
+    "d = make_clips(8, 4096, ks_frac=0.0)\n"
+    "bank = [torch.from_numpy(d[k]) for k in\n"
+    "        ('tracks', 'scale', 'f0_hz', 'voiced', 'label_w')]\n"
+    "tnet, topt = tpn.init_train_state(0, hidden=(16,), device='cpu')\n"
+    "tgen = torch.Generator()\n"
+    "assert tpn.make_train_step(8)(tnet, topt, tgen, 0, *bank) > 0\n"
+    "tpn.save_params(tnet, os.path.join(tempfile.mkdtemp(), 'w'))\n"
+    "assert run_benchmark(0.4, device='cpu')['truth_notes'] == 8\n"
+    "assert sweep(b_values=(0.0,), mono_duration=3.0, poly_seeds=(1,),\n"
+    "             quiet=True, device='cpu')['f1_by_B']['0']\n"
+    "with device_trace(tempfile.mkdtemp()):\n"
+    "    with phase('guard', quiet=True):\n"
+    "        assert seng.audio_to_midi(ys) is not None\n"
+)
+
 
 def test_port_never_imports_jax():
     """With jax made unimportable, the port still runs the v1 path fused,
@@ -461,7 +493,7 @@ def test_port_never_imports_jax():
         "    for i in range(0, len(y), 5000):\n"
         "        rt.feed(y[i:i + 5000])\n"
         "    assert rt.poll_events() and rt.finalize(), live_fin\n"
-        + _POLY_PATHS +
+        + _POLY_PATHS + _TOOL_PATHS +
         "loaded = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert all(sys.modules[m] is None for m in loaded), loaded\n"
         "print('ok', len(events))\n")
@@ -507,7 +539,7 @@ _PORT_PATHS = (
     "    for i in range(0, len(y), 5000):\n"
     "        rt.feed(y[i:i + 5000])\n"
     "    assert rt.poll_events() and rt.finalize(), live_fin\n"
-) + _POLY_PATHS
+) + _POLY_PATHS + _TOOL_PATHS + _TRAIN_VALIDATE_PATHS
 
 
 def test_port_never_imports_the_jax_package():
@@ -594,7 +626,10 @@ def _copy_ref():
                              (np.sin(np.arange(9000) * 0.05), 22050, 2048,
                               512)),
                             ("frame_signal", (np.arange(3000.0), 256, 64,
-                                              "constant"))],
+                                              "constant")),
+                            ("rms", (np.sin(np.arange(9000) * 0.05), 2048,
+                                     512)),
+                            ("midi_to_hz", (np.arange(40.0, 80.0),))],
             "ref.pyin_ref": [("local_transition", (60, 7)),
                              ("local_transition", (9, 7))],
             "ref.trend_ref": [("_savgol_kernel", (11, 3)),
@@ -608,6 +643,10 @@ def _copy_ref():
     t, j = _port_and_original("ref.pyin_ref")
     for a, b in zip(t.beta_threshold_probs(tconfig.PyinConfig()),
                     j.beta_threshold_probs(PyinConfig())):
+        np.testing.assert_array_equal(a, b)
+    y = generate_test_track(sr=22050)[0][:22050]
+    for a, b in zip(t.pyin(y, 22050, 512, tconfig.PyinConfig()),
+                    j.pyin(y, 22050, 512, PyinConfig())):
         np.testing.assert_array_equal(a, b)
     t, j = _port_and_original("ref.trend_ref")
     assert (t.ARTIC_NAMES, t.SLIDE_NAMES) == (j.ARTIC_NAMES, j.SLIDE_NAMES)

@@ -379,7 +379,12 @@ def test_every_device_argument_defaults_to_the_card():
                 "verify.per_note.synthesize_with_per_note_params",
                 "verify.technique.verify_technique_by_audio_matching",
                 "viz.piano_roll.render_piano_roll",
-                "serve.server.AegisServer", "serve.server.main"}
+                "serve.server.AegisServer", "serve.server.main",
+                "models.pitchnet.init_params",
+                "models.pitchnet.init_train_state", "models.train.evaluate",
+                "models.train.train", "tools.validate_device.validate",
+                "tools.benchmark.run_benchmark",
+                "tools.inharmonic_sweep.sweep"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -401,7 +406,8 @@ def test_every_device_argument_defaults_to_the_card():
     "apply_effect_chain", "audio_similarity", "note_slice_similarity",
     "optimize_all_notes", "synthesize_with_per_note_params",
     "verify_technique_by_audio_matching", "render_piano_roll",
-    "AegisServer", "serve_main"])
+    "AegisServer", "serve_main", "init_params", "init_train_state",
+    "evaluate", "train", "validate", "run_benchmark", "sweep"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
@@ -418,6 +424,9 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
     from aegis_tpu_torch.verify import (per_note, similarity, technique)
     from aegis_tpu_torch.viz import piano_roll
     from aegis_tpu_torch.serve import server
+    from aegis_tpu_torch.models import train
+    from aegis_tpu_torch.tools import (benchmark, inharmonic_sweep,
+                                       validate_device)
     monkeypatch.setattr(stems, "find_demucs", lambda: None)
     event = {"note": 57, "start": 0, "end": 6, "velocity": 90,
              "track": "main", "technique": None, "confidence": 0.9}
@@ -493,6 +502,16 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
         "render_piano_roll": lambda: piano_roll.render_piano_roll(midi),
         "AegisServer": lambda: server.AegisServer(),
         "serve_main": lambda: server.main("127.0.0.1", 0),
+        "init_params": lambda: pitchnet.init_params(0),
+        "init_train_state": lambda: pitchnet.init_train_state(0),
+        "evaluate": lambda: train.evaluate(net, n_clips=2),
+        "train": lambda: train.train(steps=1, batch=2, clips=2,
+                                     clip_len=4096),
+        "validate": lambda: validate_device.validate(quiet=True),
+        "run_benchmark": lambda: benchmark.run_benchmark(0.4),
+        "sweep": lambda: inharmonic_sweep.sweep(b_values=(0.0,),
+                                                mono_duration=1.0,
+                                                poly_seeds=(1,), quiet=True),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
