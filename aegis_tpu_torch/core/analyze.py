@@ -243,6 +243,34 @@ def _pack(out: Dict[str, torch.Tensor], rows, include_mel: bool) -> torch.Tensor
     return torch.cat(head + cols, dim=1)
 
 
+def analyze_program_packed(y: torch.Tensor, scale: torch.Tensor,
+                           rake_sensitivity: float, audio: AudioConfig,
+                           pyin_cfg: PyinConfig, tables: Tables,
+                           include_mel: bool = True) -> torch.Tensor:
+    """The v1 program on a transported track (``dequant_transport``), its
+    rows packed into one (T, [n_mels +] len(_V1_ROWS)) buffer on the
+    track's device."""
+    y = dequant_transport(y, scale)
+    return _pack(analyze_program(y, rake_sensitivity, audio, pyin_cfg, tables),
+                 _V1_ROWS, include_mel)
+
+
+def analyze_financial_program_packed(y: torch.Tensor, scale: torch.Tensor,
+                                     rake_sensitivity: float,
+                                     audio: AudioConfig, pyin_cfg: PyinConfig,
+                                     tables: Tables,
+                                     use_guitar_filters: bool = True,
+                                     include_mel: bool = True) -> torch.Tensor:
+    """The financial program on a transported track, packed as
+    ``analyze_program_packed`` packs the v1 one (rows ``_FIN_ROWS``)."""
+    y = dequant_transport(y, scale)
+    return _pack(
+        analyze_financial_program(y, rake_sensitivity, audio, pyin_cfg,
+                                  tables, use_guitar_filters),
+        _FIN_ROWS, include_mel,
+    )
+
+
 def _unpack(buf: np.ndarray, rows, n_mels: int) -> Dict[str, np.ndarray]:
     """Packed buffer (..., n_mels + len(rows)) -> named arrays, for the
     single-track (T, C) layout and the batch (B, T, C) layout alike."""
@@ -311,16 +339,16 @@ def dispatch_analyze(
         raise ValueError(f"unknown transport {transport!r} "
                          "(int8 | int4 | int16 | float32)")
     tables = tables_from_numpy(audio, pyin_cfg, device)
-    y_f = dequant_transport(y_dev, scale)
     if financial:
-        out = analyze_financial_program(y_f, rake_sensitivity, audio, pyin_cfg,
-                                        tables, use_guitar_filters)
+        packed = analyze_financial_program_packed(
+            y_dev, scale, rake_sensitivity, audio, pyin_cfg, tables,
+            use_guitar_filters, fetch_mel)
         rows = _FIN_ROWS
     else:
-        out = analyze_program(y_f, rake_sensitivity, audio, pyin_cfg, tables)
+        packed = analyze_program_packed(y_dev, scale, rake_sensitivity, audio,
+                                        pyin_cfg, tables, fetch_mel)
         rows = _V1_ROWS
-    return (_pack(out, rows, fetch_mel), rows, true_frames,
-            audio.n_mels if fetch_mel else 0)
+    return packed, rows, true_frames, audio.n_mels if fetch_mel else 0
 
 
 def fetch_analyze(handle) -> Dict[str, np.ndarray]:

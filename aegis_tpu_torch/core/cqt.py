@@ -17,7 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aegis_tpu_torch.config import AudioConfig, PyinConfig
 from aegis_tpu_torch.core import dsp
+from aegis_tpu_torch.core.tables import tables_from_numpy
 
 CQT_FMIN_MIDI = 24.0  # C1, matching filters.cqt_filterbank's default fmin
 
@@ -50,6 +52,18 @@ def onset_strength_t(mel_power_t: torch.Tensor, lag: int = 1) -> torch.Tensor:
     """librosa.onset.onset_strength semantics from mel POWER: dB scale then
     onset_from_db."""
     return onset_from_db(dsp.power_to_db(mel_power_t), lag)
+
+
+def onset_envelope_program(y: torch.Tensor, sr: int, n_fft: int = 2048,
+                           hop_length: int = 512,
+                           n_mels: int = 128) -> torch.Tensor:
+    """One program on ``y``'s device: audio -> mel -> onset-strength
+    envelope (T,)."""
+    tables = tables_from_numpy(
+        AudioConfig(sample_rate=sr, hop_length=hop_length, n_fft=n_fft,
+                    n_mels=n_mels), PyinConfig(), y.device)
+    mel = dsp.melspectrogram_t(y.to(torch.float32), hop_length, tables)
+    return onset_strength_t(mel)
 
 
 def pick_onsets(envelope: np.ndarray, sr: int, hop_length: int,

@@ -1,4 +1,5 @@
-"""Framing, STFT power, mel spectrogram, dB and RMS (PyTorch).
+"""Framing, STFT power, mel spectrogram, dB, RMS and the Hz / MIDI
+conversions (PyTorch).
 
 Counterpart of ``aegis_tpu/core/dsp.py``.  The STFT is the same real-DFT
 matmul pair (frames @ cos, frames @ sin) against ``dft_matrices``; the
@@ -72,8 +73,21 @@ def power_to_db(S: torch.Tensor, amin: float = 1e-10,
     return torch.maximum(log_spec, torch.max(log_spec) - top_db)
 
 
+def amplitude_to_db(S: torch.Tensor, amin: float = 1e-5,
+                    top_db: float = 80.0) -> torch.Tensor:
+    return power_to_db(S ** 2, amin=amin ** 2, top_db=top_db)
+
+
 def rms(y: torch.Tensor, frame_length: int = 2048,
         hop_length: int = 512) -> torch.Tensor:
     """Frame-wise RMS with centered zero padding, shape (T,)."""
     frames = frame_signal(y, frame_length, hop_length, "constant")
     return torch.sqrt(torch.mean(frames ** 2, dim=-1))
+
+
+def hz_to_midi(hz):
+    return 12.0 * torch.log2(hz / 440.0) + 69.0
+
+
+def midi_to_hz(midi):
+    return 440.0 * 2.0 ** ((midi - 69.0) / 12.0)

@@ -1,14 +1,12 @@
 """NumPy oracle for the "financial" trend/noise filters.
 
-A copy of the part of ``aegis_tpu/ref/trend_ref.py`` that
-``analyze_pitch_financial`` reaches, plus the RSI of the ghost-note filter,
-the Savitzky-Golay kernel behind the device taps and the adaptive confidence
-threshold (the ATR, Ichimoku and stochastic filters, which nothing in this
-package calls, are left out).  Loop-style implementations that mirror the
-reference modules (aegis_engine_core_v2/financial_filters.py and
-financial_analysis.py): they define the CPU-side semantics; the fast host
-twins of ``core/trend_fast.py`` are pinned byte for byte to them, and the
-device scans of ``core/trend.py`` are parity-tested against them.
+A whole copy of ``aegis_tpu/ref/trend_ref.py``.  Loop-style implementations
+that mirror the reference modules (aegis_engine_core_v2/financial_filters.py
+and financial_analysis.py): they define the CPU-side semantics; the fast
+host twins of ``core/trend_fast.py`` are pinned byte for byte to them, and
+the device scans of ``core/trend.py`` are parity-tested against them.  The
+ATR, Ichimoku and stochastic filters are the reference's too; nothing else
+in this package calls them.
 
 Documented deviation from the reference repo: Savitzky-Golay there compacts
 NaN gaps before filtering (financial_filters.py:41-55), which is inherently
@@ -266,6 +264,59 @@ def savgol(data: np.ndarray, window: int = 11, polyorder: int = 3) -> np.ndarray
     out = np.convolve(padded, kernel[::-1], mode="valid")
     out[~valid] = np.nan
     return out
+
+
+def atr_filter(data: np.ndarray, window: int = 14, threshold: float = 2.0):
+    """(filtered, noise_mask): spikes beyond ATR*threshold replaced by the
+    previous kept value (financial_filters.py:143-180)."""
+    n = len(data)
+    tr = np.abs(np.diff(data))
+    atr = np.full(n, np.nan)
+    for i in range(window, len(tr)):
+        w = tr[max(0, i - window) : i]
+        if (~np.isnan(w)).any():
+            atr[i] = np.nanmean(w)
+    noise = np.zeros(n, dtype=bool)
+    for i in range(1, n):
+        if not np.isnan(atr[i]) and not np.isnan(data[i]):
+            if np.abs(data[i] - data[i - 1]) > atr[i] * threshold:
+                noise[i] = True
+    filtered = data.copy()
+    for i in range(n):
+        if noise[i]:
+            filtered[i] = filtered[i - 1] if i > 0 else data[i]
+    return filtered, noise
+
+
+def ichimoku_baseline(data: np.ndarray, kijun: int = 26) -> np.ndarray:
+    """Kijun-sen baseline: trailing-window (max+min)/2
+    (financial_filters.py:182-213)."""
+    out = np.full_like(data, np.nan, dtype=np.float64)
+    for i in range(kijun, len(data)):
+        w = data[max(0, i - kijun) : i]
+        v = w[~np.isnan(w)]
+        if len(v) > 0:
+            out[i] = (np.max(v) + np.min(v)) / 2
+    return out
+
+
+def stochastic(data: np.ndarray, k_period: int = 14, smooth: int = 3) -> np.ndarray:
+    """%D stochastic oscillator, default 50 (financial_filters.py:215-249)."""
+    n = len(data)
+    if not (~np.isnan(data)).any():
+        return np.full(n, 50.0)
+    k_values = np.full(n, 50.0)
+    for i in range(k_period, n):
+        w = data[max(0, i - k_period) : i + 1]
+        v = w[~np.isnan(w)]
+        if len(v) > 0:
+            low, high = np.min(v), np.max(v)
+            if high - low > 0:
+                k_values[i] = (data[i] - low) / (high - low) * 100.0
+    d_values = np.full(n, 50.0)
+    for i in range(smooth, n):
+        d_values[i] = np.mean(k_values[max(0, i - smooth) : i + 1])
+    return d_values
 
 
 # ------------------------------------------------------------------ consensus

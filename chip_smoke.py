@@ -8,8 +8,9 @@ Drives the port's main paths, the v1 WAV -> MIDI transcription
 financial (v2) engine, the tiled, streamed and folder-batch modes, the
 live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
-the self-verification loops, the REST server, the PitchNet trainer and the
-validation tools, in twenty-seven phases; each raises on failure:
+the self-verification loops, the REST server, the PitchNet trainer, the
+validation tools and the Streamlit apps, in twenty-eight phases; each
+raises on failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -205,6 +206,31 @@ validation tools, in twenty-seven phases; each raises on failure:
                call at the clip's shape (B = 1), both kernels identical to
                their plain versions on its observations, and timed there;
                the tools launched at no other shape.
+ 28. apps    — the Streamlit apps, headless through the recording
+               stand-in for streamlit below (StreamlitStandIn: scripted
+               widgets, recorded outputs, a session_state that lives across
+               reruns), one main(device=...) call a rerun, on the 60 s
+               bench track at 44 100 Hz (22 050 Hz for the 22 050 Hz apps):
+               the Tuning Center (upload with the defaults; the confidence
+               slider moved, which launches nothing; turbo, B = 6; the HPSS
+               stem, then a fused call; neural, no launch), Tuner Pro (the
+               30 s turbo analysis, B = 3, T = 1152, w = 51, both kernels
+               held to their plain versions there on tile observations
+               first; then one rerun a tab: auto-match, crossfade, reverse,
+               ADSR, the effect loop cut to two iterations, per-note), the
+               Live Monitor (v1, financial, poly; the first APP_LIVE_S of
+               the track in 2 s chunks: one launch of each kernel a tile,
+               none for poly), both financial apps (and a Phase-2 rerun),
+               the stem lab, the MIDI sandbox's four engines, the collector
+               studio and the dashboard (no launch).  Each rerun's MIDI,
+               events, stems, markup or results equal its facade's (or the
+               direct call's) on the same input, and launch what it
+               launches; both kernels are held to their plain versions on
+               the apps' own inputs at every shape the apps launched (the
+               phase fails on a launched shape it did not check).  Each
+               rerun's wall ms (warm median of 5, CUDA events, where the
+               rerun repeats), device busy ms and launches (profiled) and
+               its facade's ms, beside the card's name and power limit.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -228,6 +254,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -495,6 +522,21 @@ def time_kernels(obs, vprob, tables, with_decode: bool) -> dict:
     n, w, band, tab = (CFG.n_pitch_bins, tables.half_width, tables.band,
                        tables.band_tab)
     lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+    row = time_kernel_inputs(lo_v, lo_u, band, tab, w)
+    if with_decode:
+        dense = pyin_cuda.dense_from_band(band, n, w)
+        row["viterbi_decode_cuda"] = cuda_ms(
+            lambda: pyin_cuda.viterbi_decode_cuda(
+                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH, tab))
+        row["viterbi_decode_plain"] = cuda_ms(lambda: tpyin.viterbi_decode(
+            obs[0], vprob[0], dense, CFG.switch_prob))
+    return row
+
+
+def time_kernel_inputs(lo_v, lo_u, band, tab, w: int) -> dict:
+    """Warm medians of each kernel and its plain version on the decode's
+    inputs (B, T, n), with the bounds of that shape."""
+    n = CFG.n_pitch_bins
     B, T = lo_v.shape[:2]
     dense = pyin_cuda.dense_from_band(band, n, w)
     psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
@@ -509,12 +551,6 @@ def time_kernels(obs, vprob, tables, with_decode: bool) -> dict:
         "viterbi_back_plain": cuda_ms(lambda: pyin_cuda.viterbi_back_plain(
             d_last, psi_v, psi_u)),
     }
-    if with_decode:
-        row["viterbi_decode_cuda"] = cuda_ms(
-            lambda: pyin_cuda.viterbi_decode_cuda(
-                lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH, tab))
-        row["viterbi_decode_plain"] = cuda_ms(lambda: tpyin.viterbi_decode(
-            obs[0], vprob[0], dense, CFG.switch_prob))
     row["shape"] = {"B": B, "T": T, "n": n, "w": w}
     row["bounds"] = {k: kernel_bounds(k, B, T, n, w)
                      for k in ("viterbi_fwd", "viterbi_back")}
@@ -1100,18 +1136,21 @@ def profile_kernels(fn, n: int = 1):
                 fn()
             torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t0) / n
-    events = prof.events()
+    # the profiler's raw events, the same ones prof.events() would turn into
+    # a tree of Python objects (at ~0.1 ms an event: seconds for a session)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not getattr(e, "is_hidden_event", lambda: False)()]
     cuda = torch.autograd.DeviceType.CUDA
-    mark = next(e for e in events if e.name == "aegis.profiled_runs"
-                and e.device_type != cuda)
+    mark = next(e for e in events if e.name() == "aegis.profiled_runs"
+                and e.device_type() != cuda)
     kernels: dict = {}
     for e in events:
         # ranges on the device's timeline (the engines' phases, torch.optim's
         # Optimizer.step#...) are user annotations, not kernels
-        if (e.device_type == cuda and not e.is_user_annotation
-                and e.time_range.start >= mark.time_range.start):
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us()
+        if (e.device_type() == cuda and not e.is_user_annotation()
+                and e.start_ns() >= mark.start_ns()):
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e3
             k[1] += 1
     return kernels, host_ms
 
@@ -2974,6 +3013,618 @@ def add_counts(total: dict, counts: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
+# ----------------------------------------------------------- Streamlit apps
+#
+# Neither the GPU machine nor the CPU test box has streamlit, so the apps
+# run headlessly through this recording stand-in: one home for phase 28 and
+# tests/test_torch_apps.py.  It is test scaffolding, not a feature of the
+# port.
+
+class Upload:
+    """What ``st.file_uploader`` returns: the bytes and a file name."""
+
+    def __init__(self, data: bytes, name: str):
+        self.name = name
+        self._data = data
+
+    def getvalue(self) -> bytes:
+        return self._data
+
+
+class Rerun(Exception):
+    """``st.rerun()``: the script stops and runs again from the top."""
+
+
+class _Box:
+    """A container (sidebar, column, tab, status, expander, empty slot,
+    progress bar): a context manager whose calls go to the stand-in."""
+
+    def __init__(self, st):
+        self._st = st
+
+    def __getattr__(self, name):
+        return getattr(self._st, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+# the output calls of streamlit the apps make; each is recorded as
+# (name, args, kwargs)
+ST_OUTPUTS = ("set_page_config", "title", "header", "subheader", "caption",
+              "markdown", "write", "info", "warning", "error", "success",
+              "toast", "metric", "download_button", "code", "dataframe",
+              "json", "audio", "line_chart", "bar_chart", "progress", "html")
+
+
+class StreamlitStandIn(types.ModuleType):
+    """A recording stand-in for ``streamlit``.  Input widgets answer from
+    ``script`` (a label, or a widget's ``key``, -> value) or with their
+    defaults; every output call is appended to ``log`` as (name, args,
+    kwargs), file-like arguments as their bytes; ``session_state`` is a
+    dict that lives across reruns, as Streamlit's does.  One ``run(main,
+    **kw)`` is one rerun of an app."""
+
+    def __init__(self, script: dict | None = None):
+        super().__init__("streamlit")
+        self.script = dict(script or {})
+        self.session_state: dict = {}
+        self.log: list = []
+        self.sidebar = _Box(self)
+        v1 = types.ModuleType("streamlit.components.v1")
+        v1.html = lambda html, **kw: self._record("html", (html,), kw)
+        self.components = types.ModuleType("streamlit.components")
+        self.components.v1 = v1
+
+    def __getattr__(self, name):
+        if name not in ST_OUTPUTS:
+            raise AttributeError(f"the streamlit stand-in has no {name!r}")
+        return lambda *a, **kw: self._record(name, a, kw)
+
+    def _record(self, name, args, kwargs):
+        args = tuple(a.getvalue() if isinstance(a, io.BytesIO) else a
+                     for a in args)
+        self.log.append((name, args, kwargs))
+        return _Box(self)
+
+    def _answer(self, label, key, default):
+        return self.script.get(key if key is not None else label, default)
+
+    # ---- input widgets
+    def radio(self, label, options, index=0, key=None, **kw):
+        return self._answer(label, key, list(options)[index])
+
+    def selectbox(self, label, options, index=0, key=None, **kw):
+        return self._answer(label, key, list(options)[index])
+
+    def checkbox(self, label, value=False, key=None, **kw):
+        return self._answer(label, key, value)
+
+    def slider(self, label, min_value=None, max_value=None, value=None,
+               step=None, key=None, **kw):
+        return self._answer(label, key,
+                            min_value if value is None else value)
+
+    def number_input(self, label, min_value=None, max_value=None, value=None,
+                     step=None, key=None, **kw):
+        return self._answer(label, key,
+                            min_value if value is None else value)
+
+    def text_input(self, label, value="", key=None, **kw):
+        return self._answer(label, key, value)
+
+    def text_area(self, label, value="", key=None, **kw):
+        return self._answer(label, key, value)
+
+    def button(self, label, key=None, **kw):
+        return self._answer(label, key, False)
+
+    def file_uploader(self, label, type=None, key=None, **kw):
+        return self._answer(label, key, None)
+
+    # ---- layout
+    def columns(self, spec, **kw):
+        return [_Box(self) for _ in range(spec if isinstance(spec, int)
+                                          else len(spec))]
+
+    def tabs(self, names):
+        return [_Box(self) for _ in names]
+
+    def status(self, *a, **kw):
+        return _Box(self)
+
+    def expander(self, *a, **kw):
+        return _Box(self)
+
+    def empty(self):
+        return _Box(self)
+
+    def rerun(self):
+        raise Rerun()
+
+    def run(self, main, **kw) -> list:
+        """One rerun: ``main(**kw)`` with this stand-in imported as
+        ``streamlit`` (and ``streamlit.components.v1``); returns the
+        outputs it recorded.  An ``st.rerun()`` runs the script again, up
+        to two times."""
+        names = ("streamlit", "streamlit.components",
+                 "streamlit.components.v1")
+        saved = {k: sys.modules.get(k) for k in names}
+        sys.modules.update(zip(names, (self, self.components,
+                                       self.components.v1)))
+        start = len(self.log)
+        try:
+            for _ in range(3):
+                try:
+                    main(**kw)
+                    break
+                except Rerun:
+                    continue
+            else:
+                raise AssertionError(f"{main.__module__}: reran 3 times")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    sys.modules.pop(k, None)
+                else:
+                    sys.modules[k] = v
+        return self.log[start:]
+
+
+def outputs(log: list, name: str) -> list:
+    """The argument tuples of every ``name`` call in a recorded log."""
+    return [args for n, args, _ in log if n == name]
+
+
+class DecodeInputs:
+    """While entered, keeps the inputs of the first Viterbi decode at each
+    forward shape (B, T, n, w) that any path launches: the app's own
+    observations, for the comparison with the plain versions afterwards.
+    Every launch of both kernels goes through
+    ``pyin_cuda.viterbi_decode_cuda`` (``core/pyin.py::_decode_states``)."""
+
+    def __init__(self):
+        self.by_shape: dict = {}
+
+    def __enter__(self):
+        self._real = real = pyin_cuda.viterbi_decode_cuda
+
+        def keep(lo_v, lo_u, band, n, w, log_stay, log_switch, tab=None):
+            self.by_shape.setdefault((lo_v.shape[0], lo_v.shape[1], n, w),
+                                     (lo_v, lo_u, band, tab))
+            return real(lo_v, lo_u, band, n, w, log_stay, log_switch, tab)
+
+        pyin_cuda.viterbi_decode_cuda = keep
+        return self
+
+    def __exit__(self, *exc):
+        pyin_cuda.viterbi_decode_cuda = self._real
+        return False
+
+
+def app_rerun(name: str, st, main, expect=None, facade=None, prep=None,
+              reps: int = 5, profile_st=None, **kw):
+    """One app rerun on the card, through the entry point a user calls
+    (``main``, once by the stand-in ``st``): counted first (each kernel's
+    launches and their shapes; ``expect`` = (launches, batch) when given),
+    then its wall ms as the warm median of ``reps`` CUDA-event timings
+    (``prep`` before each undoes the session's Phase-1 cache where the
+    rerun is a Phase-1 one; where ``reps`` is 0, the counted run's own wall
+    time), the device busy ms and launches of one profiled rerun (of
+    ``profile_st``'s session where it is given), and beside them the facade
+    call's ms.  The facade's launches must equal the rerun's.  Returns (the
+    counted rerun's log, its counts, its shapes, the facade's result)."""
+    t_start = t0 = time.perf_counter()
+    log, counts, batch = run_counted(lambda: st.run(main, **kw))
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    shapes = launched_shapes()
+    if expect is not None:
+        expect_launches(f"apps {name}", counts, batch, *expect)
+    row = {"phase": "apps", "rerun": name, "launches": counts,
+           "shapes": {k: {str(s): c for s, c in v.items()}
+                      for k, v in shapes.items()},
+           "first_wall_ms": first_ms}
+    mark = len(st.log)
+
+    def once(session=st):
+        if prep:
+            prep()
+        session.run(main, **kw)
+        del session.log[mark if session is st else 0:]
+
+    if reps:
+        row["wall_ms"] = cuda_ms(once, reps)
+    kernels, host_ms = profile_kernels(lambda: once(profile_st or st))
+    row["device_busy_ms"] = sum(v[0] for v in kernels.values()) / 1e3
+    row["device_launches"] = sum(v[1] for v in kernels.values())
+    row["profiled_host_ms"] = host_ms
+    if profile_st is not None:
+        row["profiled"] = "the same session on a shorter upload"
+    want = None
+    if facade is not None:
+        t0 = time.perf_counter()
+        want, f_counts, _ = run_counted(facade)
+        row["facade_first_ms"] = 1e3 * (time.perf_counter() - t0)
+        f_shapes = launched_shapes()
+        if (f_counts, f_shapes) != (counts, shapes):
+            raise AssertionError(f"apps {name}: launched {counts} {shapes}, "
+                                 f"its facade {f_counts} {f_shapes}")
+        if reps:
+            row["facade_ms"] = cuda_ms(facade, reps)
+    row["card"] = CARD["nvidia_smi"]
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return log, counts, shapes, want
+
+
+def midi_of(log) -> bytes:
+    return outputs(log, "download_button")[0][1]
+
+
+def tc_rows(events) -> list:
+    return [{k: e[k] for k in ("note", "start", "end", "confidence",
+                               "velocity", "track", "technique")}
+            for e in events]
+
+
+def expect_equal(name: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"apps {name}: the app's result differs from "
+                             "the direct call's")
+
+
+# the Tuning Center's and Tuner Pro's Phase-2 defaults, as their sliders
+# give them; the Live Monitor's upload is the first APP_LIVE_S of the track
+TC_EXTRACT = dict(confidence_threshold=0.30, noise_gate_db=-40,
+                  min_note_duration_ms=60, sustain_ms=150, midi_program=27,
+                  bpm=None)
+TP_EXTRACT = dict(confidence_threshold=0.30, min_note_duration_ms=60,
+                  sustain_ms=150)
+APP_LIVE_S = 20.0
+APP_PROFILE_LIVE_S = 2.0
+
+
+def phase_apps(dev, tracks, errs: dict, total: dict, timed: dict) -> list:
+    """The Streamlit apps on the card through the recording stand-in, one
+    ``main(device=...)`` call a rerun, each against its facade on the same
+    input: the Tuning Center (upload, a Phase-2 slider, turbo, stems,
+    neural), Tuner Pro (the 30 s turbo analysis and one rerun a tab), the
+    Live Monitor (v1, financial, poly), both financial apps, the stem lab,
+    the MIDI sandbox, the collector studio and the dashboard.  Both kernels
+    are held to their plain versions at B = 3, T = 1152, w = 51 on tile
+    observations before Tuner Pro, and on the apps' own inputs at every
+    shape the apps launch; timed at each shape ``timed`` lacks.  Returns the
+    kernels line's rows, one an app path."""
+    from aegis_tpu_torch.apps import (collector_studio, financial_batch,
+                                      financial_realtime,
+                                      intelligence_dashboard, live_monitor,
+                                      midi_sandbox, stem_lab, tuner_pro,
+                                      tuning_center)
+    from aegis_tpu_torch.io.audio import load_audio
+    from aegis_tpu_torch.midi import events_to_midi, events_to_midi_financial
+    from aegis_tpu_torch.synth import fluidsynth
+    from aegis_tpu_torch.synth.stems import separate_hpss
+    from aegis_tpu_torch.verify.auto_match import auto_match_parameters
+    from aegis_tpu_torch.verify.effect_loop import learning_loop
+    from aegis_tpu_torch.verify.per_note import (generate_optimization_report,
+                                                 optimize_all_notes)
+    from aegis_tpu_torch.verify.reverse import reverse_analysis
+    from aegis_tpu_torch.viz.piano_roll import render_piano_roll
+
+    # no FluidSynth on the machine: the crossfade and the financial preview
+    # render with the ADSR synth on the card
+    os.environ["AEGIS_FLUIDSYNTH_BIN"] = os.path.join(
+        tempfile.gettempdir(), "no-fluidsynth-here")
+    fluidsynth._singleton = None
+    y44, y22 = tracks[44100][0], tracks[22050][0]
+    up44 = Upload(wav_bytes(y44, 44100), "bench60_44100.wav")
+    up22 = Upload(wav_bytes(y22, 22050), "bench60_22050.wav")
+    work = tempfile.mkdtemp()
+    src = os.path.join(work, "bench60_44100.wav")
+    with open(src, "wb") as f:
+        f.write(up44.getvalue())
+    paths = []   # (kernels-line path, counts, forward shape launched)
+
+    def rerun(path, *a, **kw):
+        log, counts, shapes, want = app_rerun(*a, **kw)
+        add_counts(total, counts)
+        for key in shapes["viterbi_fwd"]:
+            paths.append((path, counts, key))
+        return log, counts, shapes, want
+
+    with DecodeInputs() as seen:
+        # ------------------------------------------------ Tuning Center
+        eng = AegisEngine(sample_rate=44100, device=dev)
+        st = StreamlitStandIn({"Audio file": up44})
+        state = st.session_state
+
+        def tc_facade(data, turbo_mode=False, pitch_backend="pyin",
+                      extract=TC_EXTRACT):
+            def call():
+                raw = eng.audio_to_midi(
+                    data, None, start_time=0.0, end_time=None,
+                    turbo_mode=turbo_mode, rake_sensitivity=0.6,
+                    pitch_backend=pitch_backend)
+                buf = io.BytesIO()
+                events = eng.extract_events(raw, buf, **extract)
+                return tc_rows(events), buf.getvalue()
+            return call
+
+        fused = tc_facade(up44.getvalue())
+        log, _, _, want = rerun(
+            "Tuning Center rerun 1 (upload): audio_to_midi fused, 60 s at "
+            "44 100 Hz", "tuning_center: upload, defaults (Phase 1 + 2)", st,
+            tuning_center.main, expect=(1, 1), facade=fused,
+            prep=lambda: state.pop("p1_key"), device=dev)
+        expect_equal("tuning_center upload", (outputs(log, "dataframe")[0][0],
+                                              midi_of(log)), want)
+
+        st.script["Confidence"] = 0.5
+        raw = state["raw_data"]
+
+        def phase2():
+            buf = io.BytesIO()
+            eng.extract_events(raw, buf, **dict(TC_EXTRACT,
+                                                confidence_threshold=0.5))
+            return buf.getvalue()
+
+        log, _, _, want = rerun(
+            None, "tuning_center: the confidence slider moved (Phase 2 only)",
+            st, tuning_center.main, expect=(0,), facade=phase2, device=dev)
+        expect_equal("tuning_center Phase 2", midi_of(log), want)
+
+        st.script.update({"Confidence": 0.30,
+                          "Turbo (sharded tiles)": True})
+        turbo = tc_facade(up44.getvalue(), turbo_mode=True)
+        log, _, _, want = rerun(
+            "Tuning Center rerun 3: turbo tiles, 60 s at 44 100 Hz",
+            "tuning_center: turbo", st, tuning_center.main,
+            expect=(1, n_tiles_of(y44, 44100, TurboConfig())),
+            facade=turbo, prep=lambda: state.pop("p1_key"), device=dev)
+        expect_equal("tuning_center turbo", midi_of(log), want[1])
+
+        st.script.update({"Turbo (sharded tiles)": False,
+                          "Stem separation (Demucs, or on-device HPSS)": True})
+
+        def stems_facade():
+            with open(eng.separate_stems(src, work), "rb") as f:
+                stem = f.read()
+            return stem, tc_facade(stem)()[1]
+
+        log, _, _, want = rerun(
+            "Tuning Center rerun 4: the HPSS stem, then audio_to_midi fused, "
+            "60 s at 44 100 Hz", "tuning_center: stems (HPSS, then Phase 1 "
+            "on the stem)", st, tuning_center.main, expect=(1, 1),
+            facade=stems_facade,
+            prep=lambda: (state.pop("p1_key"), state.pop("stem_key")),
+            device=dev)
+        expect_equal("tuning_center stems", (state["stem_bytes"],
+                                             midi_of(log)), want)
+
+        st.script.update({"Stem separation (Demucs, or on-device HPSS)":
+                          False, "Neural pitch tracker (PitchNet)": True})
+        neural = tc_facade(up44.getvalue(), pitch_backend="neural")
+        log, _, _, want = rerun(
+            None, "tuning_center: neural", st, tuning_center.main,
+            expect=(0,), facade=neural, prep=lambda: state.pop("p1_key"),
+            device=dev)
+        expect_equal("tuning_center neural", midi_of(log), want[1])
+
+        # ---------------------- the new shape: B = 3, T = 1152, w = 51
+        y30 = y44[:30 * 44100]
+        tp_tiles = n_tiles_of(y30, 44100, TurboConfig())
+        obs, vprob, tables = tile_obs(y30, 44100, dev, TurboConfig())
+        key = (*obs.shape, tables.half_width)
+        if key != (tp_tiles, 1152, CFG.n_pitch_bins, 51):
+            raise AssertionError(f"Tuner Pro's tiles: {key}")
+        lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+        compare_kernels("tuner_pro_tiles_44100", lo_v, lo_u, tables.band,
+                        tables.band_tab, tables.half_width, 1.0, errs)
+        timed[key] = time_kernels(obs, vprob, tables, False)
+        emit({"phase": "times", "what": "viterbi_tuner_pro_tiles",
+              **timed[key]["shape"], "median_ms": timed[key],
+              "card": CARD["nvidia_smi"]})
+
+        # ------------------------------------------------ Tuner Pro
+        eng = AegisEngine(sample_rate=44100, device=dev)
+        st = StreamlitStandIn({"Audio (first 30 s analyzed)": up44})
+        state = st.session_state
+
+        def tp_facade():
+            raw = eng.audio_to_midi(up44.getvalue(), None, end_time=30.0,
+                                    turbo_mode=True, pitch_backend="pyin")
+            buf = io.BytesIO()
+            events = eng.extract_events(raw, buf, **TP_EXTRACT)
+            return raw, events, buf.getvalue()
+
+        log, _, _, _ = rerun(
+            "Tuner Pro: the first 30 s, turbo tiles at 44 100 Hz",
+            "tuner_pro: the 30 s turbo analysis", st, tuner_pro.main,
+            expect=(1, tp_tiles), facade=lambda: tp_facade()[2],
+            prep=lambda: state.pop("pro_key"), device=dev)
+        raw, events, midi = tp_facade()
+        expect_equal("tuner_pro analysis", midi_of(log), midi)
+        tabs = (
+            ("auto-match", {"🔍 Auto-match parameters (54 combos)": True},
+             None, lambda: auto_match_parameters(raw["y"], eng, raw,
+                                                 sample_rate=44100)),
+            ("crossfade", {"Render crossfade": True}, (0,), None),
+            ("reverse", {"🔄 Reverse analysis": True}, (1, 1),
+             lambda: reverse_analysis(midi, eng, sample_rate=44100)),
+            ("ADSR", {"Synthesize (ADSR)": True}, (0,), None),
+            # the learning loop cut to two iterations
+            ("effect loop", {"▶ Run learning loop": True}, None,
+             lambda: learning_loop(midi, eng, preset="clean",
+                                   max_iterations=2, sample_rate=44100)),
+            ("per-note", {"⚙ Optimize every note": True}, None,
+             lambda: generate_optimization_report(optimize_all_notes(
+                 raw["y"], events, 44100, HOP, mode="quick", device=dev))))
+        st.script["Max iterations"] = 2
+        for tab, button, expect, direct in tabs:
+            st.script.update(button)
+            log, _, _, want = rerun(f"Tuner Pro: the {tab} tab, on the 30 s "
+                              "analysis at 44 100 Hz", f"tuner_pro: {tab}",
+                              st, tuner_pro.main, expect=expect,
+                              facade=direct, device=dev)
+            st.script.update(dict.fromkeys(button, False))
+            if tab == "reverse":
+                expect_equal("tuner_pro reverse",
+                             [a[1] for a in outputs(log, "metric")],
+                             [f"{want[k]:.1%}" for k in (
+                                 "note_accuracy", "pitch_accuracy",
+                                 "timing_accuracy")])
+            elif tab == "effect loop":
+                expect_equal("tuner_pro effect loop", outputs(log, "json"),
+                             [(want["best_params"],)])
+            elif direct is not None:
+                expect_equal(f"tuner_pro {tab}", outputs(log, "json"),
+                             [(want,)])
+            elif not outputs(log, "audio"):
+                raise AssertionError(f"tuner_pro {tab}: no audio")
+
+        # ------------------------------------------------ Live Monitor
+        live = Upload(wav_bytes(y22[:int(APP_LIVE_S * 22050)], 22050),
+                      "live.wav")
+        prof = Upload(wav_bytes(y22[:int(APP_PROFILE_LIVE_S * 22050)],
+                                22050), "live_profile.wav")
+        y_live, _ = load_audio(live.getvalue(), sr=22050)
+        for kind in ("v1", "financial", "poly"):
+            done = []
+
+            def direct(kind=kind):
+                rt = live_monitor.make_transcriber(kind, 22050, None,
+                                                   device=dev)
+                for _ in live_monitor.stream_in_chunks(rt, y_live, 22050,
+                                                       2.0):
+                    pass
+                final = rt.finalize()
+                done.append(rt)
+                hop = getattr(rt, "hop", None) or rt.audio.hop_length
+                return events_to_midi(final, 22050, hop, output=None)
+
+            log, counts, shapes, want = rerun(
+                f"Live Monitor {kind}, tile 24 / halo 8 at 22 050 Hz, one "
+                "tile a launch", f"live_monitor: {kind}, {APP_LIVE_S:.0f} s "
+                "in 2 s chunks", StreamlitStandIn({"Engine": kind,
+                                                   "Audio": live}),
+                live_monitor.main, facade=direct, reps=0,
+                profile_st=StreamlitStandIn({"Engine": kind, "Audio": prof}),
+                device=dev)
+            tiles = 0 if kind == "poly" else len(done[-1]._rows)
+            if (counts != dict.fromkeys(counts, tiles)
+                    or any(key[0] != 1 for v in shapes.values() for key in v)):
+                raise AssertionError(f"live_monitor {kind}: {counts} "
+                                     f"{shapes}, {tiles} tiles")
+            expect_equal(f"live_monitor {kind}", midi_of(log), want)
+
+        # ------------------------------------- financial apps, 22 050 Hz
+        fin = AegisFinancialEngine(sample_rate=22050, device=dev)
+
+        def fin_batch_facade():
+            events, info = fin.extract_events(
+                fin.analyze(up22.getvalue()), confidence_threshold=None,
+                min_note_duration_ms=50.0)
+            return events_to_midi_financial(events, 22050, HOP,
+                                            bpm=info.get("bpm"), output=None)
+
+        log, _, _, want = rerun(
+            "Financial batch: analyze fused, 60 s at 22 050 Hz",
+            "financial_batch: convert", StreamlitStandIn(
+                {"Audio": up22, "🚀 Convert": True}),
+            financial_batch.main, expect=(1, 1), facade=fin_batch_facade,
+            device=dev)
+        expect_equal("financial_batch", midi_of(log), want)
+
+        st = StreamlitStandIn({"Audio": up22})
+        state = st.session_state
+
+        def fin_rt_facade(analysis=None, min_dur=50):
+            analysis = analysis or fin.analyze(
+                up22.getvalue(), rake_sensitivity=0.6, use_guitar_filters=True,
+                turbo_mode=False, pitch_backend="pyin")
+            events, _ = fin.extract_events(
+                analysis, confidence_threshold=None, noise_gate_db=-40,
+                min_note_duration_ms=min_dur, sustain_ms=50,
+                use_harmonic_filter=True)
+            return events_to_midi_financial(events, 22050, HOP, output=None)
+
+        log, _, _, want = rerun(
+            "Financial realtime: analyze fused, 60 s at 22 050 Hz",
+            "financial_realtime: upload (Phase 1 + 2)", st,
+            financial_realtime.main, expect=(1, 1), facade=fin_rt_facade,
+            prep=lambda: state.pop("fin_key"), device=dev)
+        expect_equal("financial_realtime", midi_of(log), want)
+        st.script["Min duration (ms)"] = 100
+        phase2 = (lambda a=state["fin_analysis"]:
+                  fin_rt_facade(a, min_dur=100))
+        log, _, _, want = rerun(
+            None, "financial_realtime: a Phase-2 slider moved", st,
+            financial_realtime.main, expect=(0,), facade=phase2, device=dev)
+        expect_equal("financial_realtime Phase 2", midi_of(log), want)
+
+        # ------------------------------------------------ stem lab
+        def hpss_facade():
+            with tempfile.TemporaryDirectory() as out:
+                stem_dir = os.path.dirname(separate_hpss(src, out, device=dev))
+                stems = []
+                for n in ("other.wav", "drums.wav"):
+                    with open(os.path.join(stem_dir, n), "rb") as f:
+                        stems.append(f.read())
+                return stems
+
+        log, _, _, want = rerun(
+            None, "stem_lab: HPSS, 60 s at 44 100 Hz",
+            StreamlitStandIn({"Audio": up44, "Separate": True}),
+            stem_lab.main, expect=(0,), facade=hpss_facade, device=dev)
+        expect_equal("stem_lab", [a[1] for a in outputs(log,
+                                                        "download_button")],
+                     want)
+
+        # ---------------------- MIDI sandbox, on Tuner Pro's 30 s MIDI
+        for name in ("svg", "html_midi_player", "tonejs", "webaudiofont"):
+            roll = (lambda e=name: render_piano_roll(midi, engine=e,
+                                                     device=dev))
+            log, _, _, want = rerun(
+                None, f"midi_sandbox: {name}",
+                StreamlitStandIn({"MIDI file": Upload(midi, "tp.mid"),
+                                  "Engine": name}),
+                midi_sandbox.main, expect=(0,), facade=roll, device=dev)
+            expect_equal(f"midi_sandbox {name}",
+                         outputs(log, "download_button")[0][1], want)
+
+        # ------------------------- the collector apps: no device work
+        for main_, script in (
+                (collector_studio.main,
+                 {"Mode": "Mega batch", "Output folder": work,
+                  "Batch queries (one per line)": "a",
+                  "🚀 Run mega batch": True}),
+                (intelligence_dashboard.main, {"🔍 Scan trends": True})):
+            rerun(None, main_.__module__.rsplit(".", 1)[1],
+                  StreamlitStandIn(script), main_, expect=(0,))
+    shutil.rmtree(work)
+
+    # both kernels against their plain versions on the apps' own inputs at
+    # every shape they launched, and timed at each shape no phase timed
+    for key in sorted({key for _, _, key in paths}):
+        if key not in seen.by_shape:
+            raise AssertionError(f"apps: a launch at {key} held to no plain "
+                                 "version")
+        lo_v, lo_u, band, tab = seen.by_shape[key]
+        compare_kernels(f"apps_B{key[0]}_T{key[1]}_w{key[3]}", lo_v, lo_u,
+                        band, tab, key[3], 1.0, errs)
+        if key not in timed:
+            timed[key] = time_kernel_inputs(lo_v, lo_u, band, tab, key[3])
+            emit({"phase": "times", "what": "viterbi_apps",
+                  **timed[key]["shape"], "median_ms": timed[key],
+                  "card": CARD["nvidia_smi"]})
+    emit({"phase": "apps", "what": "launches_by_path",
+          "paths": [[what, counts, list(key)] for what, counts, key in paths]})
+    return [(what, counts, timed[key]) for what, counts, key in paths]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
@@ -3069,6 +3720,18 @@ def main() -> int:
     # validation tools (their v1 and financial calls launch both)
     timed("train", phase_train, dev)
     validate_rows = timed("validate", phase_validate, dev, errs, total)
+
+    # the Streamlit apps through the recording stand-in: their v1 and
+    # financial paths launch both kernels, held to the plain versions at
+    # every shape they launch and timed where no phase above timed them
+    timed_shapes = {(r["shape"]["B"], r["shape"]["T"], r["shape"]["n"],
+                     r["shape"]["w"]): r
+                    for r in (fused_ms[22050], fused_ms[44100],
+                              *tiles_ms.values(), auto_ms, reverse_ms,
+                              *serve_ms.values(), *live_ms.values(),
+                              *(row for _, _, row in validate_rows))}
+    apps_rows = timed("apps", phase_apps, dev, tracks, errs, total,
+                      timed_shapes)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -3109,7 +3772,7 @@ def main() -> int:
         (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
          "launch", per_call[("live", sr, tile, halo)],
          live_ms[(sr, tile, halo)])
-        for sr in (22050, 44100) for tile, halo in LIVE_PRESETS]
+        for sr in (22050, 44100) for tile, halo in LIVE_PRESETS] + apps_rows
 
     def entry(name: str) -> dict:
         first = by_shape[0][2]

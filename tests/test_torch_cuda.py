@@ -501,3 +501,70 @@ def test_validate_on_the_card(cuda):
     assert all(row.get("v1_f1", 1.0) == 1.0
                and row.get("financial_f1", 1.0) == 1.0
                for row in res["clips"].values())
+
+
+@pytest.mark.cuda
+def test_tuning_center_on_the_card_equals_the_facade(cuda):
+    """One Tuning Center rerun on the card through chip_smoke.py's
+    streamlit stand-in (its phase 28 runs the same at full size): the MIDI
+    and the events the app records equal the facade's on the same upload,
+    with one launch of each kernel."""
+    import io
+
+    from aegis_tpu_torch.apps import tuning_center
+    from aegis_tpu_torch.engine.engine import AegisEngine
+    from aegis_tpu_torch.tools.signal_gen import generate_test_track
+
+    cs = _chip_smoke()
+    wav = cs.wav_bytes(generate_test_track(sr=44100)[0], 44100)
+    st = cs.StreamlitStandIn({"Audio file": cs.Upload(wav, "ks.wav")})
+    log, counts, _ = cs.run_counted(
+        lambda: st.run(tuning_center.main, device=cuda))
+    assert counts == {"viterbi_fwd": 1, "viterbi_back": 1}
+    eng = AegisEngine(sample_rate=44100, device=cuda)
+    raw = eng.audio_to_midi(wav, None, start_time=0.0, end_time=None,
+                            turbo_mode=False, rake_sensitivity=0.6,
+                            pitch_backend="pyin")
+    buf = io.BytesIO()
+    events = eng.extract_events(raw, buf, **cs.TC_EXTRACT)
+    assert cs.midi_of(log) == buf.getvalue()
+    assert cs.outputs(log, "dataframe")[0][0] == cs.tc_rows(events)
+
+
+@pytest.mark.cuda
+def test_profile_kernels_reads_what_the_event_tree_reads(cuda, monkeypatch):
+    """chip_smoke.py's profile_kernels reads the profiler's raw events: the
+    same kernels, launch counts and device time as the FunctionEvent tree
+    (``prof.events()``) of the same session, read with the same filter."""
+    from aegis_tpu_torch.engine.engine import AegisEngine
+    from aegis_tpu_torch.tools.signal_gen import generate_test_track
+
+    cs = _chip_smoke()
+    sessions = []
+    real = torch.profiler.profile
+
+    class Kept(real):
+        def __enter__(self):
+            sessions.append(self)
+            return super().__enter__()
+
+    monkeypatch.setattr(torch.profiler, "profile", Kept)
+    eng = AegisEngine(sample_rate=44100, device=cuda)
+    y = generate_test_track(sr=44100)[0]
+    kernels, _ = cs.profile_kernels(lambda: eng.audio_to_midi(y))
+    events = sessions[0].events()
+    dev = torch.autograd.DeviceType.CUDA
+    mark = next(e for e in events if e.name == "aegis.profiled_runs"
+                and e.device_type != dev)
+    tree: dict = {}
+    for e in events:
+        if (e.device_type == dev and not e.is_user_annotation
+                and e.time_range.start >= mark.time_range.start):
+            k = tree.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    assert sorted(kernels) == sorted(tree) and len(tree) > 10
+    for name, (us, n) in tree.items():
+        assert kernels[name][1] == n, name
+        assert abs(kernels[name][0] - us) <= 1e-3, name
+    assert any("viterbi" in name for name in kernels)

@@ -77,3 +77,22 @@ def test_rms_matches_jax(two_tone_22k):
     ref = np.asarray(jdsp.rms(y))
     got = tdsp.rms(torch.from_numpy(y)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["amplitude_to_db", "hz_to_midi",
+                                  "midi_to_hz"])
+def test_db_and_pitch_helpers_match_jax(name):
+    rng = np.random.default_rng(11)
+    x = {"amplitude_to_db": rng.random((200, 64)).astype(np.float32) * 3.0,
+         "hz_to_midi": rng.uniform(40.0, 2000.0, 500).astype(np.float32),
+         "midi_to_hz": rng.uniform(20.0, 100.0, 500).astype(np.float32)}[name]
+    if name == "amplitude_to_db":
+        x[:3] = 0.0   # floored at amin
+    ref = np.asarray(getattr(jdsp, name)(x))
+    got = getattr(tdsp, name)(torch.from_numpy(x)).numpy()
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if name == "amplitude_to_db":   # power_to_db's tolerance, above
+        np.testing.assert_allclose(got, ref, atol=1e-3)
+        assert got.max() == 0.0 and got.min() >= -80.0 - 1e-6
+    else:   # within two float32 ulps
+        np.testing.assert_allclose(got, ref, rtol=2e-7, atol=0)

@@ -75,6 +75,54 @@ def test_run_analyze_rows_match_jax(transport):
             np.testing.assert_allclose(got[k], ref[k], atol=1e-4)
 
 
+@pytest.mark.parametrize("financial", [False, True])
+def test_packed_entry_points_match_jax(financial):
+    """``analyze_program_packed`` / ``analyze_financial_program_packed``: an
+    int8-transported track in, one packed buffer out, against the jitted
+    JAX programs: discrete columns equal, f0 and trend within 1e-4
+    relative, mel_db within 1.2e-3 dB, the other rows within 1e-4."""
+    import jax.numpy as jnp
+    from aegis_tpu.core import analyze as janalyze
+    from aegis_tpu_torch.core import analyze as tanalyze
+    from aegis_tpu_torch.core.tables import tables_from_numpy
+
+    y, _ = generate_test_track(sr=22050)
+    y8, s8 = tanalyze.quantize_pcm8(tanalyze.pad_to_bucket(y))
+    audio, cfg = AudioConfig(sample_rate=22050), PyinConfig()
+    taudio = tconfig.AudioConfig(sample_rate=22050)
+    tables = tables_from_numpy(taudio, tconfig.PyinConfig(),
+                               torch.device("cpu"))
+    if financial:
+        ref = janalyze.analyze_financial_program_packed(
+            jnp.asarray(y8), jnp.asarray(s8), 0.6, audio, cfg)
+        got = tanalyze.analyze_financial_program_packed(
+            torch.from_numpy(y8), torch.from_numpy(s8), 0.6, taudio,
+            tconfig.PyinConfig(), tables)
+        rows = tanalyze._FIN_ROWS
+    else:
+        ref = janalyze.analyze_program_packed(jnp.asarray(y8),
+                                              jnp.asarray(s8), 0.6, audio, cfg)
+        got = tanalyze.analyze_program_packed(
+            torch.from_numpy(y8), torch.from_numpy(s8), 0.6, taudio,
+            tconfig.PyinConfig(), tables)
+        rows = _V1_ROWS
+    ref, got = np.asarray(ref), got.numpy()
+    assert got.shape == ref.shape == (len(y8) // 512 + 1,
+                                      audio.n_mels + len(rows))
+    g = tanalyze._unpack(got, rows, audio.n_mels)
+    r = tanalyze._unpack(ref, rows, audio.n_mels)
+    np.testing.assert_allclose(g["mel_db"], r["mel_db"], atol=1.2e-3)
+    for k in rows:
+        if r[k].dtype in (bool, np.int8):
+            np.testing.assert_array_equal(g[k], r[k], err_msg=k)
+        elif k in ("f0", "trend"):
+            np.testing.assert_array_equal(np.isnan(g[k]), np.isnan(r[k]))
+            m = ~np.isnan(r[k])
+            assert np.max(np.abs(g[k][m] - r[k][m]) / r[k][m]) < 1e-4, k
+        else:
+            np.testing.assert_allclose(g[k], r[k], atol=1e-4, err_msg=k)
+
+
 def assert_same_events(got, ref):
     """Equal event lists: every discrete field (note, start, end, velocity,
     track, technique) equal; the float fields (confidence, rms_energy,
@@ -453,6 +501,22 @@ _TOOL_PATHS = (
     "with device_trace(tempfile.mkdtemp()):\n"
     "    with phase('guard', quiet=True):\n"
     "        assert seng.audio_to_midi(ys) is not None\n"
+    # every app and tool module imports without streamlit, yt_dlp or
+    # librosa; the Tuning Center runs headlessly through chip_smoke.py's
+    # stand-in
+    "import importlib, pkgutil\n"
+    "import aegis_tpu_torch.apps, aegis_tpu_torch.tools\n"
+    "for pkg in (aegis_tpu_torch.apps, aegis_tpu_torch.tools):\n"
+    "    for m in pkgutil.iter_modules(pkg.__path__, pkg.__name__ + '.'):\n"
+    "        importlib.import_module(m.name)\n"
+    "assert not {'streamlit', 'yt_dlp', 'librosa'} & set(sys.modules)\n"
+    "from chip_smoke import StreamlitStandIn, Upload, outputs\n"
+    "from aegis_tpu_torch.apps import tuning_center\n"
+    "wb = io.BytesIO()\n"   # at the app's rate: no resample
+    "write_wav(wb, generate_test_track(sr=44100)[0][:44100], 44100)\n"
+    "st = StreamlitStandIn({'Audio file': Upload(wb.getvalue(), 'a.wav')})\n"
+    "assert outputs(st.run(tuning_center.main, device='cpu'),\n"
+    "               'download_button')[0][1].startswith(b'MThd')\n"
 )
 
 

@@ -87,3 +87,14 @@ def test_split_events_at_onsets_copy_identical(seed):
                                           min_frames, tail)
         assert got == ref
         assert len(ref) > len(events)  # some events were split
+
+
+@pytest.mark.parametrize("sr", [22050, 44100])
+def test_onset_envelope_program_matches_jax(sr):
+    """Audio -> mel -> onset envelope as one program on the tensor's
+    device, against the jitted JAX program."""
+    y, _ = generate_test_track(sr=sr)
+    ref = np.asarray(jcqt.onset_envelope_program(y, sr))
+    got = tcqt.onset_envelope_program(torch.from_numpy(y), sr).numpy()
+    assert got.shape == ref.shape == (1 + len(y) // 512,)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=7.7e-5)

@@ -384,7 +384,11 @@ def test_every_device_argument_defaults_to_the_card():
                 "models.pitchnet.init_train_state", "models.train.evaluate",
                 "models.train.train", "tools.validate_device.validate",
                 "tools.benchmark.run_benchmark",
-                "tools.inharmonic_sweep.sweep"}
+                "tools.inharmonic_sweep.sweep",
+                "apps.tuning_center.main", "apps.tuner_pro.main",
+                "apps.live_monitor.main", "apps.live_monitor.make_transcriber",
+                "apps.financial_batch.main", "apps.financial_realtime.main",
+                "apps.stem_lab.main", "apps.midi_sandbox.main"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -407,7 +411,8 @@ def test_every_device_argument_defaults_to_the_card():
     "optimize_all_notes", "synthesize_with_per_note_params",
     "verify_technique_by_audio_matching", "render_piano_roll",
     "AegisServer", "serve_main", "init_params", "init_train_state",
-    "evaluate", "train", "validate", "run_benchmark", "sweep"])
+    "evaluate", "train", "validate", "run_benchmark", "sweep",
+    "make_transcriber"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
@@ -427,6 +432,7 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
     from aegis_tpu_torch.models import train
     from aegis_tpu_torch.tools import (benchmark, inharmonic_sweep,
                                        validate_device)
+    from aegis_tpu_torch.apps import live_monitor
     monkeypatch.setattr(stems, "find_demucs", lambda: None)
     event = {"note": 57, "start": 0, "end": 6, "velocity": 90,
              "track": "main", "technique": None, "confidence": 0.9}
@@ -512,6 +518,8 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
         "sweep": lambda: inharmonic_sweep.sweep(b_values=(0.0,),
                                                 mono_duration=1.0,
                                                 poly_seeds=(1,), quiet=True),
+        "make_transcriber": lambda: live_monitor.make_transcriber("v1", SR,
+                                                                  None),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()

@@ -184,3 +184,24 @@ def test_all_nan_row_matches_jax():
     assert float(P.adaptive_confidence_threshold(conf)) == 0.5
     for fn in (P.kalman, P.holt_winters, P.savgol, P.ema, P.sma):
         assert torch.isnan(fn(torch.from_numpy(x))).all()
+
+
+@pytest.mark.parametrize("name", ["atr_filter", "ichimoku_baseline",
+                                  "stochastic"])
+def test_copied_filters_equal_the_reference(noisy_pitch, name):
+    """The ATR, Ichimoku and stochastic filters complete the copy of
+    ``ref/trend_ref.py``: the same arrays as the original's."""
+    from aegis_tpu_torch.ref import trend_ref as T
+
+    x = noisy_pitch.copy()
+    x[150] += 40.0   # a spike for the ATR filter
+    got, ref = getattr(T, name)(x), getattr(R, name)(x)
+    for g, r in zip(*((got, ref) if isinstance(ref, tuple) else
+                      ((got,), (ref,)))):
+        np.testing.assert_array_equal(g, r)
+    if name == "atr_filter":
+        assert ref[1].any()
+    all_nan = np.full(40, np.nan)
+    for g, r in zip(np.atleast_1d(getattr(T, name)(all_nan)),
+                    np.atleast_1d(getattr(R, name)(all_nan))):
+        np.testing.assert_array_equal(g, r)
