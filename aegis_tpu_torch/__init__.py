@@ -38,3 +38,20 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda | cpu)")
     return dev
+
+
+from aegis_tpu_torch.config import (AudioConfig, DetectorConfig,  # noqa: E402,F401
+                                    PyinConfig)
+
+
+def __getattr__(name):
+    # the engines load lazily, so ``import aegis_tpu_torch`` imports none
+    if name == "AegisEngine":
+        from aegis_tpu_torch.engine.engine import AegisEngine
+
+        return AegisEngine
+    if name == "AegisFinancialEngine":
+        from aegis_tpu_torch.engine.financial import AegisFinancialEngine
+
+        return AegisFinancialEngine
+    raise AttributeError(f"module 'aegis_tpu_torch' has no attribute {name!r}")

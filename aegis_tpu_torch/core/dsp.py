@@ -86,6 +86,10 @@ def rms(y: torch.Tensor, frame_length: int = 2048,
 
 
 def hz_to_midi(hz):
+    """MIDI note numbers of frequencies in Hz: a tensor, or a NumPy array
+    or a float (taken through ``torch.as_tensor``)."""
+    if not isinstance(hz, torch.Tensor):
+        hz = torch.as_tensor(hz)
     return 12.0 * torch.log2(hz / 440.0) + 69.0
 
 

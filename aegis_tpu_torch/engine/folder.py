@@ -1,8 +1,9 @@
 """Folder batch sweep (PyTorch): every matching audio file of a folder to
-MIDI on one device.
+MIDI, on one device or over a mesh of ranks.
 
-Counterpart of ``aegis_tpu/engine/poly.py::transcribe_folder``, its
-one-device branch: every track's fused analyze is queued on the device at
+Counterpart of ``aegis_tpu/engine/poly.py::transcribe_folder`` (also
+importable from ``engine.poly``).  On one device every track's fused
+analyze is queued on the device at
 the track's OWN length bucket (``core.analyze.dispatch_analyze``, which
 does not wait for the device) before any result is fetched, so track i+1's
 upload and compute overlap track i's fetch; event extraction and the MIDI
@@ -11,7 +12,10 @@ encode then run per track on the host.  The engines are "v1" and
 peeling through ``engine.poly``) and "auto" (the polyphony-aware router,
 ``engine.auto``), each dispatched ahead the same way; "v1" and "financial"
 also with the neural backend (PitchNet,
-``models.pitchnet.dispatch_analyze_neural``).
+``models.pitchnet.dispatch_analyze_neural``).  On a ``utils/mesh.py`` mesh
+of ranks (or, with no mesh, in an initialized ``torch.distributed`` world)
+the tracks are zero-padded to the longest, stacked and run as one sharded
+batch, as the JAX package runs them on a device mesh.
 """
 
 from __future__ import annotations
@@ -21,14 +25,15 @@ import os
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.io.audio import load_audio
 from aegis_tpu_torch.midi.encode import events_to_midi, events_to_midi_financial
 from aegis_tpu_torch.utils.logging import get_logger
-from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core.analyze import dispatch_analyze, fetch_analyze
 from aegis_tpu_torch.core.events import extract_events_v1
+from aegis_tpu_torch.utils.mesh import Mesh, rank_device
 
 log = get_logger("Folder")
 
@@ -45,6 +50,7 @@ def transcribe_folder(
     engine: str = "v1",
     transport: str = "int8",
     device="cuda",
+    mesh: Optional[Mesh] = None,
     **extract_kwargs,
 ) -> List[Tuple[str, str, int]]:
     """Batch-transcribe every file of ``folder`` matching ``pattern``.
@@ -58,11 +64,21 @@ def transcribe_folder(
     own transport), so folder events equal the facades'.  Returns
     [(wav_path, mid_path, n_events)].
 
-    ``turbo`` is accepted for the JAX signature; the one-device path runs
-    the fused program and does not tile.  ``transport`` is the upload
-    packing of ``core.analyze.run_analyze`` (int8 | int4 | int16 |
-    float32); the neural backend takes int8 | int16 | float32, and the poly
-    and auto engines keep their own int8 block-float.
+    ``turbo`` tiles the sharded batch; the one-device path runs the fused
+    program and does not tile.  ``transport`` is the upload packing of
+    ``core.analyze.run_analyze`` (int8 | int4 | int16 | float32); the
+    neural backend takes int8 | int16 | float32, and the poly and auto
+    engines keep their own int8 block-float.
+
+    With a ``mesh`` (or, with none, in an initialized world: every rank,
+    the JAX package's default) the tracks are zero-padded to the longest,
+    stacked and analyzed as one sharded batch: "v1" / "financial" through
+    engine.turbo.run_analyze_batch (per-track int16, or float32 when asked
+    for), "poly" through run_analyze_poly_turbo, the neural backend at
+    22 050 Hz through models.pitchnet.run_analyze_neural_batch (other rates
+    dispatch per track), "auto" per track (it has no sharded program, and
+    says so).  Every rank extracts the events and returns the same list;
+    rank 0 alone writes the MIDI files.
     """
     if engine not in ("v1", "financial", "poly", "auto"):
         raise ValueError(f"unknown engine: {engine!r} "
@@ -75,7 +91,10 @@ def transcribe_folder(
     if transport not in ("int8", "int4", "int16", "float32"):
         raise ValueError(f"unknown transport {transport!r} "
                          "(int8 | int4 | int16 | float32)")
-    device = resolve_device(device)
+    single_chip = mesh is None and not dist.is_initialized()
+    device = rank_device(mesh, device)
+    lead = (mesh.rank if mesh is not None
+            else dist.get_rank() if not single_chip else 0) == 0
 
     paths = sorted(glob.glob(os.path.join(folder, pattern)))
     if not paths:
@@ -86,6 +105,7 @@ def transcribe_folder(
     duration = (end_time - start_time) if end_time else None
     tracks = [load_audio(p, sr=sample_rate, offset=start_time,
                          duration=duration)[0] for p in paths]
+    lengths = [len(y) for y in tracks]
 
     audio = AudioConfig(sample_rate=sample_rate)
     pyin_cfg = PyinConfig()
@@ -98,11 +118,29 @@ def transcribe_folder(
         return os.path.join(output_dir,
                             os.path.splitext(os.path.basename(p))[0] + ".mid")
 
+    def stacked() -> np.ndarray:
+        """The tracks zero-padded to the longest, as one (B, n) batch."""
+        n = max(lengths)
+        return np.stack([np.pad(y, (0, n - len(y))) for y in tracks])
+
+    def mesh_slices(out) -> list:
+        """Sharded batch output -> per-track dicts, each cut to its own
+        frames (per-track scalars such as adaptive_threshold pass through
+        unsliced)."""
+        def cut(v, i, tf):
+            a = np.asarray(v[i])
+            return a[:tf] if a.ndim >= 1 else a
+        return [{k: cut(v, i, audio.n_frames(lengths[i]))
+                 for k, v in out.items()} for i in range(len(tracks))]
+
     if engine == "auto":
         from aegis_tpu_torch.engine.auto import (AegisAutoEngine,
                                                  dispatch_analyze_auto,
                                                  fetch_analyze_auto)
 
+        if not single_chip:
+            log.info("auto engine has no sharded batch path; running "
+                     "dispatch-ahead on the default device")
         aeng = AegisAutoEngine(sample_rate=sample_rate, device=device)
         handles = [dispatch_analyze_auto(y, aeng, rake_sensitivity,
                                          device=device) for y in tracks]
@@ -110,7 +148,7 @@ def transcribe_folder(
         for p, h in zip(paths, handles):
             mid_path = mid_path_of(p)
             events = aeng.extract_events(fetch_analyze_auto(h, aeng),
-                                         output_mid=mid_path,
+                                         output_mid=mid_path if lead else None,
                                          **extract_kwargs)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
@@ -122,43 +160,75 @@ def transcribe_folder(
                                                  fetch_analyze_poly)
 
         peng = AegisPolyEngine(sample_rate=sample_rate, device=device)
-        handles = [dispatch_analyze_poly(
-            y, sample_rate, peng.n_fft, peng.hop_length, peng.n_bins,
-            peng.bins_per_octave, peng.max_voices,
-            transport=peng.transport, device=device) for y in tracks]
+        if single_chip:
+            handles = [dispatch_analyze_poly(
+                y, sample_rate, peng.n_fft, peng.hop_length, peng.n_bins,
+                peng.bins_per_octave, peng.max_voices,
+                transport=peng.transport, device=device) for y in tracks]
+            per_track = [fetch_analyze_poly(h) for h in handles]
+        else:
+            from aegis_tpu_torch.engine.turbo import run_analyze_poly_turbo
+
+            out = run_analyze_poly_turbo(
+                stacked(), sr=sample_rate, n_fft=peng.n_fft,
+                hop_length=peng.hop_length, n_bins=peng.n_bins,
+                bins_per_octave=peng.bins_per_octave,
+                max_voices=peng.max_voices, turbo=turbo, device=device,
+                mesh=mesh)
+            # poly frame grid: 1 + n // hop (sr-proportional hop)
+            per_track = [
+                {k: np.asarray(v[i])[: 1 + lengths[i] // peng.hop_length]
+                 for k, v in out.items()} for i in range(len(tracks))]
         results = []
-        for p, h in zip(paths, handles):
+        for p, r in zip(paths, per_track):
             mid_path = mid_path_of(p)
-            events = peng.extract_events(fetch_analyze_poly(h),
-                                         output_mid=mid_path,
-                                         **extract_kwargs)
+            events = peng.extract_events(r, output_mid=mid_path if lead
+                                         else None, **extract_kwargs)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
 
     if pitch_backend == "neural":
-        from aegis_tpu_torch.models.pitchnet import (default_params,
+        from aegis_tpu_torch.models.pitchnet import (SR_NATIVE,
+                                                     default_params,
                                                      dispatch_analyze_neural,
-                                                     fetch_analyze_neural)
+                                                     fetch_analyze_neural,
+                                                     run_analyze_neural_batch)
 
         params = default_params(device)
-        handles = [dispatch_analyze_neural(
-            y, sample_rate, audio.hop_length, params, rake_sensitivity,
-            n_fft=audio.n_fft, n_mels=audio.n_mels, fetch_mel=False,
-            financial=financial, transport=transport, device=device)
-            for y in tracks]
-        per_track = [fetch_analyze_neural(h) for h in handles]
+        if not single_chip and sample_rate == SR_NATIVE:
+            # ONE data-parallel batch over the ranks; the net replicates
+            per_track = mesh_slices(run_analyze_neural_batch(
+                stacked(), sample_rate, audio.hop_length, params,
+                rake_sensitivity, n_fft=audio.n_fft, n_mels=audio.n_mels,
+                financial=financial, device=device, mesh=mesh))
+        else:
+            handles = [dispatch_analyze_neural(
+                y, sample_rate, audio.hop_length, params, rake_sensitivity,
+                n_fft=audio.n_fft, n_mels=audio.n_mels, fetch_mel=False,
+                financial=financial, transport=transport, device=device)
+                for y in tracks]
+            per_track = [fetch_analyze_neural(h) for h in handles]
         # PitchNet fires up to ~a window early; forward-snap such starts to
         # the attack rise (the v1 facade's backend convention; the
         # financial facade reads the pitch_backend marker below)
         if not financial:
             extract_kwargs.setdefault("onset_fwd_snap_ms", 100.0)
-    else:
+    elif single_chip:
         handles = [dispatch_analyze(y, audio, pyin_cfg, rake_sensitivity,
                                     financial=financial, fetch_mel=False,
                                     transport=transport, device=device)
                    for y in tracks]
         per_track = [fetch_analyze(h) for h in handles]
+    else:
+        from aegis_tpu_torch.engine.turbo import run_analyze_batch
+
+        per_track = mesh_slices(run_analyze_batch(
+            stacked(), audio, pyin_cfg, rake_sensitivity, turbo=turbo,
+            fetch_mel=False, financial=financial,
+            # the tiled batch programs take per-track int16 or float32 only
+            transport="float32" if transport == "float32" else "int16",
+            device=device, mesh=mesh))
 
     results = []
     if financial:
@@ -172,8 +242,10 @@ def transcribe_folder(
             r["pitch_backend"] = pitch_backend
             events, info = feng.extract_events(r, **extract_kwargs)
             mid_path = mid_path_of(p)
-            events_to_midi_financial(events, sample_rate, audio.hop_length,
-                                     bpm=info.get("bpm"), output=mid_path)
+            if lead:
+                events_to_midi_financial(events, sample_rate,
+                                         audio.hop_length,
+                                         bpm=info.get("bpm"), output=mid_path)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
@@ -194,7 +266,9 @@ def transcribe_folder(
             **extract_kwargs,
         )
         mid_path = mid_path_of(p)
-        events_to_midi(events, sample_rate, audio.hop_length, output=mid_path)
+        if lead:
+            events_to_midi(events, sample_rate, audio.hop_length,
+                           output=mid_path)
         results.append((p, mid_path, len(events)))
         log.info(f"  {os.path.basename(p)}: {len(events)} events")
     return results

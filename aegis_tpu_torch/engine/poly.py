@@ -11,7 +11,9 @@ envelope, the f16 CQT plane) in one device->host copy; the planes are rebuilt
 on the host through the NumPy oracle (core.poly.unpack_poly_voices).  The JAX
 package fetches the CQT plane in a background thread, which exists for its
 tunnelled transfers and is not ported.  The folder sweep lives in
-``engine/folder.py``.
+``engine/folder.py``; ``transcribe_folder`` is also importable from here,
+where the JAX package defines it (a lazy re-export: ``engine/folder.py``
+imports this module).
 """
 
 from __future__ import annotations
@@ -284,3 +286,12 @@ def label_chords(events: List[dict], sr: int, hop_length: int,
         out.append({"time_sec": round(start * spf, 4),
                     "name": name, "notes": notes})
     return out
+
+
+def __getattr__(name):
+    if name == "transcribe_folder":
+        from aegis_tpu_torch.engine.folder import transcribe_folder
+
+        return transcribe_folder
+    raise AttributeError(
+        f"module 'aegis_tpu_torch.engine.poly' has no attribute {name!r}")

@@ -2,8 +2,8 @@
 
 Counterpart of ``aegis_tpu/engine/turbo.py``: the v1 and financial tiled,
 batch and streamed programs and the tiled polyphonic program.
-The JAX package runs a ``shard_map`` over a (data, time) device mesh; on
-one GPU both mesh axes are batch dimensions of ONE program over
+The JAX package runs a ``shard_map`` over a (data, time) device mesh.  In
+one process both mesh axes are batch dimensions of ONE program over
 (B tracks, n_tiles tiles):
 
   * the audio is cut into fixed tiles of ``tile_frames`` frames with
@@ -19,6 +19,16 @@ one GPU both mesh axes are batch dimensions of ONE program over
     the batch (a quiet track keeps its own reference);
   * the ``psum`` of the distortion partial sums is a sum over the track's
     tiles; the ``all_gather`` of the trend rows is a reshape.
+
+Every program also takes a ``mesh`` (``utils/mesh.py``): a (data, time)
+grid of ranks over ``torch.distributed``, one process a rank.  Each rank
+runs the same program on its block (B / data tracks, n_tiles / time
+tiles); its first and last tile take their halos from the neighbouring
+ranks, the dB reference is a ``pmax`` over the time row, the distortion
+sums add in rank order, the trend rows are all-gathered over the time
+row, and the packed output over the world, so every rank returns the
+whole answer.  Without a mesh, in an initialized world, the programs take
+every rank as the JAX package takes every device.
 """
 
 from __future__ import annotations
@@ -29,7 +39,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core import masks, trend
 from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _GTR_ROWS, _INT_ROWS,
@@ -38,6 +47,7 @@ from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _GTR_ROWS, _INT_ROWS,
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.pyin import pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
+from aegis_tpu_torch.utils.mesh import SOLO, Mesh, resolve_mesh
 from aegis_tpu_torch.utils.prof import phase
 
 
@@ -143,38 +153,64 @@ def _tile_analyze(slab: torch.Tensor, mel_db: torch.Tensor, rake_sens: float,
 # The tiled program over (B tracks, n_tiles tiles)
 # --------------------------------------------------------------------------
 
+def _block(x: Optional[torch.Tensor], m, b: int, cols: int = 0):
+    """The rank's block of a global array: its ``b`` rows on the data axis
+    and, with ``cols``, its ``cols`` columns on the time axis."""
+    if x is None:
+        return None
+    x = x[m.data_index * b:(m.data_index + 1) * b]
+    return x[:, m.time_index * cols:(m.time_index + 1) * cols] if cols else x
+
+
+def _assemble(parts, m) -> torch.Tensor:
+    """Every rank's (b, k_local, ...) block, in rank order -> (B, n_tiles,
+    ...): time blocks side by side, data blocks stacked."""
+    return torch.cat([torch.cat(parts[d * m.time:(d + 1) * m.time], dim=1)
+                      for d in range(m.data)], dim=0)
+
+
 def tile_slabs(y16: torch.Tensor, scale: torch.Tensor, audio: AudioConfig,
                pyin_cfg: PyinConfig, turbo: TurboConfig, n_tiles: int,
                edge16: Optional[torch.Tensor] = None,
-               edge_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dequantized haloed slabs (B * n_tiles, span) of B tracks, track-major:
-    the halo exchange of the JAX package's ``ppermute`` as overlapping
-    windows of each track padded by the halo context on both sides (zeros,
-    the global center / tail padding, or real audio from ``edge16``)."""
+               edge_scale: Optional[torch.Tensor] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Dequantized haloed slabs (b * k_local, span), track-major, of the
+    rank's block of B tracks (all of them without a mesh): the halo
+    exchange of the JAX package's ``ppermute`` as overlapping windows of
+    the block padded by the halo context on both sides, from the
+    neighbours on the time row (``Mesh.halo``) and at the track's ends
+    zeros, the global center / tail padding, or real audio from
+    ``edge16``."""
+    m = mesh or SOLO
     hop, fl = audio.hop_length, pyin_cfg.frame_length
     tile, halo = turbo.tile_frames, turbo.halo_frames
-    span = _slab_span(tile, halo, hop, fl)
     ctx = halo * hop + fl // 2  # halo context per side
-    b, s_len = y16.shape
-    if scale.dim() == 2:  # int8 block-float
-        y_f = (y16.to(torch.float32).reshape(b, -1, PCM8_BLOCK)
-               * scale[:, :, None]).reshape(b, s_len)
+    B, s_len = y16.shape
+    b, k_local, s_local = B // m.data, n_tiles // m.time, s_len // m.time
+    y_loc = _block(y16, m, b, s_local)
+    sc = _block(scale, m, b, s_local // PCM8_BLOCK if scale.dim() == 2 else 0)
+    if sc.dim() == 2:  # int8 block-float
+        y_f = (y_loc.to(torch.float32).reshape(b, -1, PCM8_BLOCK)
+               * sc[:, :, None]).reshape(b, s_local)
     else:
-        y_f = y16.to(torch.float32) * scale[:, None]
-    if edge16 is not None:
+        y_f = y_loc.to(torch.float32) * sc[:, None]
+    edge = _block(edge16, m, b)
+    if edge is not None:
         # streamed slabs splice REAL neighbouring audio (always int16 with a
         # per-track scale) instead of the zero-fill track-edge convention
-        e_sc = edge_scale if scale.dim() == 2 else scale
-        left = edge16[:, :ctx].to(torch.float32) * e_sc[:, None]
-        right = edge16[:, ctx:].to(torch.float32) * e_sc[:, None]
+        e_sc = _block(edge_scale, m, b) if sc.dim() == 2 else sc
+        e_l = edge[:, :ctx].to(torch.float32) * e_sc[:, None]
+        e_r = edge[:, ctx:].to(torch.float32) * e_sc[:, None]
     else:
-        left = right = torch.zeros((b, ctx), dtype=torch.float32,
-                                   device=y16.device)
-    y_ext = torch.cat([left, y_f, right], dim=1)
-    # slab g starts at (g*tile - halo)*hop - fl//2 in track coordinates,
-    # which is y_ext[g*tile*hop]
-    return y_ext.unfold(1, span, tile * hop)[:, :n_tiles].reshape(
-        b * n_tiles, span)
+        e_l = e_r = torch.zeros((b, ctx), dtype=torch.float32,
+                                device=y16.device)
+    left, right = m.halo(y_f[:, :ctx], y_f[:, -ctx:])
+    y_ext = torch.cat([e_l if left is None else left, y_f,
+                       e_r if right is None else right], dim=1)
+    # slab j starts at (j*tile - halo)*hop - fl//2 in block coordinates,
+    # which is y_ext[j*tile*hop]
+    return y_ext.unfold(1, _slab_span(tile, halo, hop, fl), tile * hop)[
+        :, :k_local].reshape(b * k_local, -1)
 
 
 def analyze_audio_sharded(
@@ -198,41 +234,66 @@ def analyze_audio_sharded(
     edge_scale: Optional[torch.Tensor] = None,  # (B,) int16 scale for edge16
                                              # when ``scale`` is the 2-D int8
                                              # block-scale plane
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
-    """The tiled analyze of B tracks as one batched program.
+    """The tiled analyze of B tracks: one batched program, or on a (data,
+    time) ``mesh`` of ranks the rank's block of (B / data tracks,
+    n_tiles / time tiles) with the JAX package's collectives.
 
     ``scale`` is (B,) per-track (int16 / float32) or the (B, S/PCM8_BLOCK)
     int8 block-scale plane.  Returns ONE packed (B, n_tiles, tile,
     [n_mels +] len(rows)) float32 buffer (columns: optional mel_db, then
-    _V1_ROWS / _GTR_ROWS / _FIN_ROWS) — unpack with _unpack; with
-    ``peak_only`` only each track's mel-power peak over the tile
-    interiors, (B,).
+    _V1_ROWS / _GTR_ROWS / _FIN_ROWS), the whole of it on every rank —
+    unpack with _unpack; with ``peak_only`` only each track's mel-power
+    peak over the tile interiors, (B,).
+
+    The halo context of a rank's first and last tile comes from its
+    neighbours on the time row (``Mesh.halo``); the row's ends take zeros,
+    the global center / tail padding, or real audio from ``edge16``.  The
+    per-track dB reference is a MAX over the track's tiles, a ``pmax`` over
+    the time row only, never across the batch (a quiet track keeps its own
+    reference).
 
     ``financial=True`` runs the v2 pipeline: the guitar filters per haloed
     tile (exact, see _tile_analyze) and the whole-track trend stack
-    (consensus, Bollinger, MACD) over each track's full-length f0 row —
-    identical op order on identical full-length input, so no halo
-    argument is needed.  The per-track scalars (adaptive threshold,
-    distortion score) ride along broadcast per frame.
+    (consensus, Bollinger, MACD) over each track's full-length f0 row,
+    all-gathered over the time row and run replicated — identical op order
+    on identical full-length input, so no halo argument is needed; the
+    distortion partial sums add in rank order.  The per-track scalars
+    (adaptive threshold, distortion score) ride along broadcast per frame.
     """
+    m = mesh or SOLO
+    hop, fl = audio.hop_length, pyin_cfg.frame_length
     tile, halo = turbo.tile_frames, turbo.halo_frames
+    ctx = halo * hop + fl // 2  # halo context per side
+    B = y16.shape[0]
+    if B % m.data or n_tiles % m.time:
+        raise ValueError(f"{B} tracks x {n_tiles} tiles do not divide over a "
+                         f"({m.data}, {m.time}) mesh")
+    b, k_local = B // m.data, n_tiles // m.time
+    if mesh is not None and ctx > k_local * tile * hop:
+        raise ValueError(
+            f"halo context ({ctx} samples) exceeds a device's local block "
+            f"({k_local * tile * hop} samples): the one-hop ppermute cannot "
+            f"fetch it. Increase tile_frames or reduce halo_frames/mesh "
+            f"time-axis size.")
     tables = tables_from_numpy(audio, pyin_cfg, y16.device)
-    b = y16.shape[0]
     flat = tile_slabs(y16, scale, audio, pyin_cfg, turbo, n_tiles, edge16,
-                      edge_scale)
+                      edge_scale, mesh)
 
     mel_power = _tile_mel_power(flat, audio, pyin_cfg, turbo, tables)
     if peak_only:
         # pass 1 of the streamed mode: the slab's mel-power peak over the
         # tile INTERIORS (halo copies equal their interior twins)
         t2 = tile + 2 * halo
-        interior = mel_power.reshape(b, n_tiles, t2, -1)[:, :, halo:halo + tile]
-        return torch.amax(interior, dim=(1, 2, 3))
+        interior = mel_power.reshape(b, k_local, t2, -1)[:, :, halo:halo + tile]
+        peak = m.pmax_time(torch.amax(interior, dim=(1, 2, 3)))
+        return torch.cat(m.gather_world(peak)[::m.time])
     # PER-TRACK dB reference (power_to_db ref=max): the max over this
     # track's tiles, never across the batch
-    gmax = (db_ref if db_ref is not None
-            else torch.amax(mel_power.reshape(b, -1), dim=1))
-    gmax_t = torch.repeat_interleave(gmax, n_tiles)[:, None, None]
+    gmax = (_block(db_ref, m, b) if db_ref is not None
+            else m.pmax_time(torch.amax(mel_power.reshape(b, -1), dim=1)))
+    gmax_t = torch.repeat_interleave(gmax, k_local)[:, None, None]
     amin = 1e-10
     log_spec = 10.0 * torch.log10(torch.clamp_min(mel_power, amin))
     log_spec = log_spec - 10.0 * torch.log10(torch.clamp_min(gmax_t, amin))
@@ -243,36 +304,42 @@ def analyze_audio_sharded(
                         use_guitar_filters=use_guitar_filters)
 
     if financial:
-        L = n_tiles * tile  # frames per track
-        f0_full = torch.where(out["voiced_flag"], out["f0"],
-                              float("nan")).reshape(b, L)
-        probs_full = out["voiced_probs"].reshape(b, L)
+        L = k_local * tile  # frames per rank
+        f0_clean = torch.where(out["voiced_flag"], out["f0"],
+                               float("nan")).reshape(b, L)
+        # full-track rows on every rank of the time row
+        f0_full = m.all_gather_time(f0_clean, dim=1)
+        probs_full = m.all_gather_time(out["voiced_probs"].reshape(b, L),
+                                       dim=1)
         with phase("aegis.trend", quiet=True):
             fin = trend.analyze_pitch_financial(f0_full)
             combined = probs_full * 0.5 + fin["confidence"] * 0.5
             thr = trend.adaptive_confidence_threshold(combined)  # (b,)
 
-        # distortion_score from the tile-interior partial sums of each track
+        # distortion_score from the tile-interior partial sums of each
+        # track, added in rank order over the time row
         n_mels = audio.n_mels
         hi_bins = n_mels - int(n_mels * 0.7)
-        high = out["dist_high_sum"].reshape(b, -1).sum(1)
-        tot = out["dist_total_sum"].reshape(b, -1).sum(1)
-        dist = (high / (L * hi_bins)) / (tot / (L * n_mels) + 1e-6)  # (b,)
+        t_full = n_tiles * tile
+        high = m.psum_time(out["dist_high_sum"].reshape(b, -1).sum(1))
+        tot = m.psum_time(out["dist_total_sum"].reshape(b, -1).sum(1))
+        dist = (high / (t_full * hi_bins)) / (tot / (t_full * n_mels) + 1e-6)
         if not use_guitar_filters:
             dist = torch.zeros_like(dist)  # as analyze_financial_program
 
-        def per_tile(x):  # full-track row -> tile-major rows
-            return x.reshape(b * n_tiles, tile)
+        def local(x):  # the rank's slice of a full-track row, tile-major
+            return x[:, m.time_index * L:(m.time_index + 1) * L].reshape(
+                b * k_local, tile)
 
         def per_frame(x):  # per-track scalar -> every frame of its tiles
-            return torch.repeat_interleave(x, n_tiles)[:, None].expand(
-                b * n_tiles, tile)
+            return torch.repeat_interleave(x, k_local)[:, None].expand(
+                b * k_local, tile)
 
-        out["trend"] = per_tile(fin["trend"])
-        out["artic_codes"] = per_tile(fin["articulations"])
-        out["slide_codes"] = per_tile(fin["slides"])
-        out["financial_confidence"] = per_tile(fin["confidence"])
-        out["combined_confidence"] = per_tile(combined)
+        out["trend"] = local(fin["trend"])
+        out["artic_codes"] = local(fin["articulations"])
+        out["slide_codes"] = local(fin["slides"])
+        out["financial_confidence"] = local(fin["confidence"])
+        out["combined_confidence"] = local(combined)
         out["adaptive_threshold"] = per_frame(thr)
         out["distortion_score"] = per_frame(dist)
 
@@ -280,7 +347,8 @@ def analyze_audio_sharded(
     cols = [out[k].to(torch.float32)[..., None] for k in rows]
     head = [out["mel_db"]] if include_mel else []
     packed = torch.cat(head + cols, dim=-1)
-    return packed.reshape((b, n_tiles) + packed.shape[1:])
+    packed = packed.reshape((b, k_local) + packed.shape[1:])
+    return _assemble(m.gather_world(packed), m)
 
 
 def quantize_tracks(ys: np.ndarray, n_samples: int) -> tuple:
@@ -328,15 +396,20 @@ def run_analyze_turbo(
     financial: bool = False,
     use_guitar_filters: bool = True,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Single-track tiled analyze: tile the track and stitch the interiors
     back together.  Output schema matches core.analyze.run_analyze (with
     the int16 PCM transport; transport="float32" for bit-exact ingest).
-    financial=True returns the _FIN_ROWS schema."""
+    financial=True returns the _FIN_ROWS schema.  On a ``mesh`` the tiles
+    spread over its time axis; in an initialized world with no mesh, over
+    every rank (``default_mesh(time_only=True)``)."""
+    mesh, device = resolve_mesh(mesh, device, time_only=True)
     return {k: (v[0] if getattr(v, "ndim", 0) else v) for k, v in
             run_analyze_batch(np.asarray(y, np.float32)[None], audio, pyin_cfg,
                               rake_sensitivity, turbo, fetch_mel, transport,
-                              financial, use_guitar_filters, device).items()}
+                              financial, use_guitar_filters, device,
+                              mesh=mesh).items()}
 
 
 def run_analyze_batch(
@@ -350,22 +423,29 @@ def run_analyze_batch(
     financial: bool = False,
     use_guitar_filters: bool = True,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Batched multi-track tiled analyze: all B x n_tiles tiles in one
-    program.  Rows come back (B, T); the per-track scalars of the
-    financial schema come back (B,).  transport="float32" skips the int16
+    program, or over a (data, time) ``mesh`` of ranks (tracks over the
+    data axis, tiles over the time axis; the tile count rounds up to a
+    multiple of the time axis, as the JAX package's does).  In an
+    initialized world with no mesh, every rank on a (gcd(world, B), ...)
+    grid.  Rows come back (B, T); the per-track scalars of the financial
+    schema come back (B,).  transport="float32" skips the int16
     quantization for bit-exact ingest."""
     turbo = turbo or TurboConfig()
-    device = resolve_device(device)
+    mesh, device = resolve_mesh(mesh, device, batch=len(ys))
+    n_time = mesh.time if mesh is not None else 1
     tile = turbo.tile_frames
     true_frames = audio.n_frames(ys.shape[1])
     n_tiles = max(1, -(-true_frames // tile))
+    n_tiles = -(-n_tiles // n_time) * n_time
     n_samp = n_tiles * tile * audio.hop_length
     y_dev, scale = _tiled_inputs(ys, n_samp, transport, device)
     packed = analyze_audio_sharded(
         y_dev, scale, rake_sensitivity, audio, pyin_cfg, turbo, n_tiles,
         include_mel=fetch_mel, financial=financial,
-        use_guitar_filters=use_guitar_filters)
+        use_guitar_filters=use_guitar_filters, mesh=mesh)
     buf = packed.cpu().numpy()
     buf = buf.reshape(buf.shape[0], -1, buf.shape[-1])[:, :true_frames]
     rows = _FIN_ROWS if financial else _V1_ROWS
@@ -426,50 +506,65 @@ def analyze_poly_sharded(
                            # reflect padding on the left (STFT pad_mode),
                            # zeros on the right (past the padded tail)
     hop: int, max_voices: int, tables, n_tiles: int, tile: int, halo: int,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """The polyphonic Perception Phase (core.poly.analyze_poly_program) of B
-    tracks as ONE batched program over (tracks, tiles).
+    tracks as ONE batched program over (tracks, tiles), or over a (data,
+    time) ``mesh`` of ranks, each on its (B / data, n_tiles / time) block.
 
     Per-frame work (CQT projection, harmonic peeling, RMS, onset flux) is
-    local to a haloed tile.  The JAX package exchanges halos between
-    devices; here a tile's halos are overlapping windows of the track
-    padded by the halo context, once for each of the two edge conventions:
-    the STFT slabs have the reflected head on the left of tile 0, the RMS
-    slabs zeros; both have zeros past the right end.  The only cross-tile
-    state is one per-track scalar, the mel-power dB reference of the onset
-    envelope: a max over ONE track's tile interiors, never across the
-    batch.  Returns ONE packed (B, n_tiles, tile, 2*max_voices + 2 +
+    local to a haloed tile.  A rank's halos come from its neighbours on the
+    time row (``Mesh.halo``); at the track's ends each of the two edge
+    conventions is spliced in: the STFT slabs have the reflected head on
+    the left of tile 0, the RMS slabs zeros; both have zeros past the right
+    end.  The only cross-tile state is one per-track scalar, the mel-power
+    dB reference of the onset envelope: a max over ONE track's tile
+    interiors (a ``pmax`` over the time row), never across the batch.
+    Returns ONE packed (B, n_tiles, tile, 2*max_voices + 2 +
     ceil(n_bins/2)) buffer of raw voices plus the f16-packed raw CQT
-    magnitude plane; the host reconstructs the roll / confidence /
-    salience planes through the NumPy oracle with the track-global
-    acceptance peak (max over the shipped saliences)."""
+    magnitude plane, the whole of it on every rank; the host reconstructs
+    the roll / confidence / salience planes through the NumPy oracle with
+    the track-global acceptance peak (max over the shipped saliences)."""
     from aegis_tpu_torch.core.poly import cqt_plane_cols
 
+    m = mesh or SOLO
     n_fft = tables.window.shape[0]
     span = _slab_span(tile, halo, hop, n_fft)
     ctx = halo * hop + n_fft // 2
-    b = y16.shape[0]
-    y_f = y16.to(torch.float32) * scale[:, None]
-    e_l = edge16[:, :ctx].to(torch.float32) * scale[:, None]
-    e_r = edge16[:, ctx:].to(torch.float32) * scale[:, None]
+    B, s_len = y16.shape
+    if B % m.data or n_tiles % m.time:
+        raise ValueError(f"{B} tracks x {n_tiles} tiles do not divide over a "
+                         f"({m.data}, {m.time}) mesh")
+    b, k_local = B // m.data, n_tiles // m.time
+    if mesh is not None and ctx > k_local * tile * hop:
+        raise ValueError(
+            f"halo context ({ctx} samples) exceeds a device's local block "
+            f"({k_local * tile * hop} samples); increase tile_frames or "
+            f"reduce halo_frames/mesh time-axis size.")
+    sc = _block(scale, m, b)
+    y_f = _block(y16, m, b, s_len // m.time).to(torch.float32) * sc[:, None]
+    edge = _block(edge16, m, b)
+    e_l = edge[:, :ctx].to(torch.float32) * sc[:, None]
+    e_r = edge[:, ctx:].to(torch.float32) * sc[:, None]
     zero = torch.zeros_like(e_l)
+    left, right = m.halo(y_f[:, :ctx], y_f[:, -ctx:])
 
-    def slabs(left, right):
-        y_ext = torch.cat([left, y_f, right], dim=1)
-        return y_ext.unfold(1, span, tile * hop)[:, :n_tiles]
+    def slabs(edge_l, edge_r):
+        y_ext = torch.cat([edge_l if left is None else left, y_f,
+                           edge_r if right is None else right], dim=1)
+        return y_ext.unfold(1, span, tile * hop)[:, :k_local].reshape(
+            b * k_local, span)
 
-    slab_s = slabs(e_l, e_r).reshape(b * n_tiles, span)
-    slab_z = slabs(zero, zero).reshape(b * n_tiles, span)
+    def track_ref(interior_max):  # (b*k_local,) -> each track's own max
+        gmax = m.pmax_time(torch.amax(interior_max.reshape(b, k_local), dim=1))
+        return torch.repeat_interleave(gmax, k_local)
 
-    def track_ref(interior_max):  # (B*n_tiles,) -> each track's own max
-        gmax = torch.amax(interior_max.reshape(b, n_tiles), dim=1)
-        return torch.repeat_interleave(gmax, n_tiles)
-
-    packed, _ = poly_tile_rows(slab_s, slab_z, hop, tile, halo, tables,
-                               max_voices, track_ref)
+    packed, _ = poly_tile_rows(slabs(e_l, e_r), slabs(zero, zero), hop, tile,
+                               halo, tables, max_voices, track_ref)
     n_bins = tables.cqt_fb_t.shape[1]
     assert packed.shape[-1] == 2 * max_voices + 2 + cqt_plane_cols(n_bins)
-    return packed.reshape((b, n_tiles) + packed.shape[1:])
+    packed = packed.reshape((b, k_local) + packed.shape[1:])
+    return _assemble(m.gather_world(packed), m)
 
 
 def run_analyze_poly_turbo(
@@ -483,24 +578,32 @@ def run_analyze_poly_turbo(
     n_mels: int = 128,
     turbo: Optional[TurboConfig] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Tiled polyphonic analyze: tile every track and stitch the tile
     interiors.  Output schema matches AegisPolyEngine.analyze: {roll,
     confidence, salience, rms, onset_env, cqt_mag}, batched along axis 0
-    when ``ys`` is 2-D."""
+    when ``ys`` is 2-D.  On a (data, time) ``mesh`` of ranks, tracks over
+    the data axis and tiles over the time axis (the tile count rounds up
+    to a multiple of it); in an initialized world with no mesh, every
+    rank: on the time axis for one track, on a (gcd(world, B), ...) grid
+    for a batch."""
     from aegis_tpu_torch.core.analyze import reflect_head
     from aegis_tpu_torch.core.poly import unpack_poly_voices
     from aegis_tpu_torch.core.tables import poly_tables
 
-    device = resolve_device(device)
     single = ys.ndim == 1
     ys2 = np.asarray(ys, np.float32)[None] if single else np.asarray(
         ys, np.float32)
+    mesh, device = resolve_mesh(mesh, device,
+                                batch=None if single else len(ys2))
+    n_time = mesh.time if mesh is not None else 1
     turbo = turbo or TurboConfig()
     tile, halo = turbo.tile_frames, turbo.halo_frames
     ctx = halo * hop_length + n_fft // 2
     true_frames = 1 + ys2.shape[1] // hop_length
     n_tiles = max(1, -(-true_frames // tile))
+    n_tiles = -(-n_tiles // n_time) * n_time
     n_samp = n_tiles * tile * hop_length
 
     y16, scale = quantize_tracks(ys2, n_samp)
@@ -515,7 +618,7 @@ def run_analyze_poly_turbo(
     with phase("aegis.poly_program", quiet=True):
         packed = analyze_poly_sharded(
             upload(y16, device), upload(scale, device), upload(edge, device),
-            hop_length, max_voices, tables, n_tiles, tile, halo)
+            hop_length, max_voices, tables, n_tiles, tile, halo, mesh=mesh)
     buf = packed.cpu().numpy()
     buf = buf.reshape(buf.shape[0], -1, buf.shape[-1])[:, :true_frames]
     # per-track plane reconstruction through the oracle; the acceptance
@@ -569,6 +672,7 @@ def run_analyze_streamed(
     fetch_group: int = 8,
     transport: str = "int8",
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Bounded-memory tiled analyze for multi-minute tracks.
 
@@ -595,18 +699,27 @@ def run_analyze_streamed(
     per-track scale.  "int16" keeps the bit-exact-vs-run_analyze_turbo
     contract; int8 falls back to int16 when the slab length is not a
     block multiple (tile*hop < 1024 configurations).
+
+    On a ``mesh`` (in an initialized world with none: every rank on the
+    time axis) each slab's tiles spread over the time axis: 16 tiles a
+    rank by default, the slab rounded to a multiple of the time axis as
+    the JAX package rounds it; pass 1's interior peak is a ``pmax`` over
+    the time row.
     """
     turbo = turbo or TurboConfig()
-    device = resolve_device(device)
+    mesh, device = resolve_mesh(mesh, device, time_only=True)
+    n_time = mesh.time if mesh is not None else 1
     tile, halo = turbo.tile_frames, turbo.halo_frames
     hop, fl = audio.hop_length, pyin_cfg.frame_length
     ctx = halo * hop + fl // 2
 
     true_frames = audio.n_frames(len(y))
     n_tiles_total = max(1, -(-true_frames // tile))
-    # 16 tiles a slab is the JAX package's measured default; never pad a
-    # short track past its own tile count
-    slab_tiles = min(slab_tiles or 16, n_tiles_total)
+    # 16 tiles a rank is the JAX package's measured default; never pad a
+    # short track past its own tile count (rounded to the mesh)
+    slab_tiles = slab_tiles or 16 * n_time
+    slab_tiles = -(-slab_tiles // n_time) * n_time
+    slab_tiles = min(slab_tiles, -(-n_tiles_total // n_time) * n_time)
     slab_samp = slab_tiles * tile * hop
     n_slabs = max(1, -(-n_tiles_total // slab_tiles))
     n_samp = n_slabs * slab_samp
@@ -652,7 +765,7 @@ def run_analyze_streamed(
     peaks = [analyze_audio_sharded(
         slabs_dev[s], scales_dev[s], rake_sensitivity, audio, pyin_cfg, turbo,
         slab_tiles, peak_only=True, edge16=edges_dev[s],
-        edge_scale=edge_scale) for s in range(n_slabs)]
+        edge_scale=edge_scale, mesh=mesh) for s in range(n_slabs)]
     gmax = torch.amax(torch.cat(peaks)).reshape(1)
 
     # pass 2: the full analyze per slab; outputs fetched in groups
@@ -671,7 +784,7 @@ def run_analyze_streamed(
             slabs_dev[s], scales_dev[s], rake_sensitivity, audio, pyin_cfg,
             turbo, slab_tiles, include_mel=fetch_mel, guitar_only=financial,
             use_guitar_filters=use_guitar_filters, edge16=edges_dev[s],
-            db_ref=gmax, edge_scale=edge_scale))
+            db_ref=gmax, edge_scale=edge_scale, mesh=mesh))
         if len(pending) >= fetch_group:
             outs.append(fetch_batch(pending))
             pending = []

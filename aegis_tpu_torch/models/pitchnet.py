@@ -2,7 +2,8 @@
 ``pitch_backend="neural"``, its inference programs and its training step.
 
 Counterpart of ``aegis_tpu/models/pitchnet.py`` (the loop that trains it is
-``models/train.py``; the multi-device batch program is not ported).  A small
+``models/train.py``; ``run_analyze_neural_batch`` and the training step
+also run data-parallel over a ``utils/mesh.py`` mesh of ranks).  A small
 spectrum-input MLP maps a 2048-sample window's standardized log-magnitude
 spectrum to a 192-bin pitch distribution (25-cent bins from one semitone
 below E2) and a voicing logit.  A whole track is one program on the device:
@@ -51,6 +52,7 @@ from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _V1_ROWS, PCM8_BLOCK,
                                           quantize_pcm16, upload)
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.tables import tables_from_numpy
+from aegis_tpu_torch.utils.mesh import SOLO, Mesh, resolve_mesh
 
 SR_NATIVE = 22050  # the net is trained at this rate; other rates resample
 WIN = 2048
@@ -798,6 +800,79 @@ def run_analyze_neural(
         fetch_mel, financial, use_guitar_filters, transport, device))
 
 
+def run_analyze_neural_batch(
+    ys: np.ndarray,
+    sr: int,
+    hop_length: int,
+    params: Optional[PitchNet] = None,
+    rake_sensitivity: float = 0.6,
+    n_fft: int = 2048,
+    n_mels: int = 128,
+    fetch_mel: bool = False,
+    financial: bool = False,
+    use_guitar_filters: bool = True,
+    device="cuda",
+    mesh: Optional[Mesh] = None,
+) -> Dict[str, np.ndarray]:
+    """Data-parallel PitchNet inference of a (B, n_samples) batch.
+
+    The tracks split over every rank of the ``mesh``, its (data, time)
+    grid flattened (PitchNet rows are frame-local and the net is small, so
+    there is nothing to time-tile); the net is replicated and the only
+    collective is the all-gather of the packed output, so every rank
+    returns the whole batch.  In an initialized world with no mesh, every
+    rank on the data axis, as the JAX package's default.  Each rank runs
+    the fused native program (``_neural_native_rows``, + financial_tail)
+    track by track.  Output schema matches engine.turbo.run_analyze_batch:
+    _V1_ROWS (or _FIN_ROWS with financial=True) batched on axis 0.
+
+    Native rate (22.05 kHz) only: other rates use the per-track dual-rate
+    programs (dispatch_analyze_neural).  Tracks quantize per-track int16
+    (engine.turbo.quantize_tracks); silent filler tracks pad B to a
+    multiple of the world and are dropped on fetch."""
+    from aegis_tpu_torch.engine.turbo import quantize_tracks
+
+    if sr != SR_NATIVE:
+        raise ValueError(
+            f"run_analyze_neural_batch is native-rate ({SR_NATIVE}) only; "
+            f"got sr={sr} — dispatch the dual-rate per-track programs "
+            "instead (dispatch_analyze_neural)")
+    ys2 = np.asarray(ys, np.float32)
+    if ys2.ndim != 2:
+        raise ValueError(f"expected a (B, n_samples) batch, got {ys2.shape}")
+    mesh, device = resolve_mesh(mesh, device, time_only=False)
+    m = mesh or SOLO
+    if params is None:
+        params = default_params(device)
+
+    B = ys2.shape[0]
+    true_frames = 1 + ys2.shape[1] // hop_length
+    n_samp = bucket_length(ys2.shape[1])
+    y16, scales = quantize_tracks(ys2, n_samp)
+    pad = (-B) % m.world
+    if pad:  # silent filler tracks shard-align the batch; dropped on fetch
+        y16 = np.concatenate([y16, np.zeros((pad, n_samp), np.int16)])
+        scales = np.concatenate([scales, np.ones(pad, np.float32)])
+    per = len(y16) // m.world
+    mine = slice(m.rank * per, (m.rank + 1) * per)
+    y_dev, s_dev = upload(y16[mine], device), upload(scales[mine], device)
+
+    rows = _FIN_ROWS if financial else _V1_ROWS
+    audio = AudioConfig(sample_rate=sr, hop_length=hop_length, n_fft=n_fft,
+                        n_mels=n_mels)
+    packed = []
+    with torch.profiler.record_function("aegis.neural_batch"):
+        for i in range(per):
+            out = _neural_native_rows(y_dev[i], s_dev[i], rake_sensitivity,
+                                      params, sr, hop_length, n_fft, n_mels)
+            if financial:
+                out = financial_tail(out, audio, use_guitar_filters)
+            packed.append(_pack(out, rows, fetch_mel))
+        local = torch.stack(packed)
+    buf = torch.cat(m.gather_world(local)).cpu().numpy()[:B, :true_frames]
+    return _unpack(buf, rows, n_mels if fetch_mel else 0)
+
+
 # ---------------------------------------------------------------- training
 #
 # Counterpart of the JAX package's flax / optax trainer.  The loop lives in
@@ -852,14 +927,10 @@ def pitch_target(f0_hz: torch.Tensor, voiced: torch.Tensor) -> torch.Tensor:
     return torch.where(voiced[:, None], g, uni)
 
 
-def loss_fn(net: PitchNet, windows: torch.Tensor, f0_hz: torch.Tensor,
-            voiced: torch.Tensor,
-            label_w: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Softmax cross-entropy on the blurred cents target over voiced frames
-    plus sigmoid cross-entropy on voicing (optax's two losses), each a
-    weighted mean.  ``label_w`` (B,) in [0, 1] down-weights ambiguous
-    frames (decay boundaries, reverb tails; models/data.py builds it);
-    None = all 1.  The features carry no gradient: only the net trains."""
+def _loss_terms(net: PitchNet, windows: torch.Tensor, f0_hz: torch.Tensor,
+                voiced: torch.Tensor, label_w: Optional[torch.Tensor] = None):
+    """The four sums of ``loss_fn``: (sum ce * pw, sum pw, sum vce * w,
+    sum w)."""
     with torch.no_grad():
         feats = featurize(windows)
     logits, vlogit = net(feats)
@@ -868,9 +939,21 @@ def loss_fn(net: PitchNet, windows: torch.Tensor, f0_hz: torch.Tensor,
     vmask = voiced.to(torch.float32)
     w = torch.ones_like(vmask) if label_w is None else label_w
     pw = vmask * w
-    pitch_loss = (ce * pw).sum() / (pw.sum() + 1e-6)
     vce = F.binary_cross_entropy_with_logits(vlogit, vmask, reduction="none")
-    voiced_loss = (vce * w).sum() / (w.sum() + 1e-6)
+    return (ce * pw).sum(), pw.sum(), (vce * w).sum(), w.sum()
+
+
+def loss_fn(net: PitchNet, windows: torch.Tensor, f0_hz: torch.Tensor,
+            voiced: torch.Tensor,
+            label_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax cross-entropy on the blurred cents target over voiced frames
+    plus sigmoid cross-entropy on voicing (optax's two losses), each a
+    weighted mean.  ``label_w`` (B,) in [0, 1] down-weights ambiguous
+    frames (decay boundaries, reverb tails; models/data.py builds it);
+    None = all 1.  The features carry no gradient: only the net trains."""
+    ce_pw, pw, vce_w, w = _loss_terms(net, windows, f0_hz, voiced, label_w)
+    pitch_loss = ce_pw / (pw + 1e-6)
+    voiced_loss = vce_w / (w + 1e-6)
     return pitch_loss + voiced_loss
 
 
@@ -951,33 +1034,97 @@ def init_train_state(seed: int = 0, hidden: Tuple[int, ...] = HIDDEN,
 def train_on_batch(net: PitchNet, opt: torch.optim.Optimizer, lr: float,
                    wins: torch.Tensor, f0_hz: torch.Tensor,
                    voiced: torch.Tensor,
-                   label_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   label_w: Optional[torch.Tensor] = None,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One AdamW step at rate ``lr`` on one batch of windows; the loss
-    before the step as a 0-d tensor on the device (no host sync)."""
+    before the step as a 0-d tensor on the device (no host sync).
+
+    On a ``mesh`` the batch is the GLOBAL one and data-parallel over every
+    rank (the flattened (data, time) grid, as the JAX step's
+    ``with_sharding_constraint``): each rank keeps its slice.  The loss is
+    a ratio of global sums, so the two denominators are summed over the
+    ranks first (they carry no gradient) and each rank backpropagates its
+    own numerators over them; the flattened gradients and the loss terms
+    then add in rank order, and every rank applies the same AdamW step, so
+    the replicas stay bitwise equal."""
     for group in opt.param_groups:
         group["lr"] = lr
     opt.zero_grad(set_to_none=True)
-    loss = loss_fn(net, wins, f0_hz, voiced, label_w)
-    loss.backward()
+    if mesh is None:
+        loss = loss_fn(net, wins, f0_hz, voiced, label_w)
+        loss.backward()
+    else:
+        loss = _data_parallel_backward(net, mesh, wins, f0_hz, voiced,
+                                       label_w)
     opt.step()
     return loss.detach()
 
 
-def make_train_step(batch: int = 256, lr=3e-4):
+def _data_parallel_backward(net: PitchNet, mesh: Mesh, wins, f0_hz, voiced,
+                            label_w) -> torch.Tensor:
+    n = wins.shape[0]
+    if n % mesh.world:
+        raise ValueError(f"batch {n} does not divide over {mesh.world} ranks")
+    per = n // mesh.world
+    sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    ce_pw, pw, vce_w, w = _loss_terms(
+        net, wins[sl], f0_hz[sl], voiced[sl],
+        None if label_w is None else label_w[sl])
+    dens = mesh.psum_world(torch.stack([pw, w]).detach())
+    loss = ce_pw / (dens[0] + 1e-6) + vce_w / (dens[1] + 1e-6)
+    loss.backward()
+    params = list(net.parameters())
+    total = mesh.psum_world(torch.cat([p.grad.reshape(-1) for p in params]
+                                      + [loss.detach().reshape(1)]))
+    offset = 0
+    for p in params:
+        p.grad.copy_(total[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+    return total[-1]
+
+
+def make_train_step(batch: int = 256, lr=3e-4, mesh: Optional[Mesh] = None):
     """The training step ``(net, opt, gen, step_idx, tracks16, scale, f0_hz,
     voiced, label_w) -> loss``: sample a batch of crops on the bank's
     device, featurize it, run the net, the loss, backward and the AdamW
     update at ``lr(step_idx)`` (or the constant ``lr``).  The loss comes
-    back as a 0-d device tensor; nothing in the step waits for the card."""
+    back as a 0-d device tensor; nothing in the step waits for the card.
+    On a ``mesh`` every rank draws the same global batch from its own
+    generator, seeded alike, and keeps its slice (``train_on_batch``), so
+    a world of N sees the crops of a world of one."""
     sched = lr if callable(lr) else (lambda i: lr)
 
     def step(net, opt, gen, step_idx, tracks16, scale, f0_hz, voiced,
              label_w=None):
         wins, f0b, vb, wb = sample_windows(gen, tracks16, scale, f0_hz,
                                            voiced, batch, label_w)
-        return train_on_batch(net, opt, sched(step_idx), wins, f0b, vb, wb)
+        return train_on_batch(net, opt, sched(step_idx), wins, f0b, vb, wb,
+                              mesh)
 
     return step
+
+
+def train_on_batches(tree: Dict, batches, lrs, mesh: Optional[Mesh] = None,
+                     device="cuda"):
+    """AdamW steps (``init_train_state``'s optimizer) from the flax tree
+    ``tree`` on explicit NumPy batches ``(windows, f0_hz, voiced,
+    label_w)``, one a rate of ``lrs``, on ``device`` or data-parallel over
+    a ``mesh``; returns (the flax tree after the last step, the losses)."""
+    from aegis_tpu_torch.utils.mesh import rank_device
+
+    device = rank_device(mesh, device)
+    net = pitchnet_from_numpy(tree, device)
+    net.train()
+    opt = torch.optim.AdamW(net.parameters(), lr=lrs[0], betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-5)
+    losses = []
+    for (wins, f0, voiced, w), lr in zip(batches, lrs):
+        loss = train_on_batch(
+            net, opt, lr, upload(wins, device), upload(f0, device),
+            upload(voiced, device), None if w is None else upload(w, device),
+            mesh)
+        losses.append(float(loss))
+    return params_to_numpy(net), losses
 
 
 def save_params(net: PitchNet, path: str,

@@ -5,8 +5,10 @@
 The whole synthetic clip bank lives on the card (int16, one upload); each
 step samples its crops there, featurizes them, runs the net, the loss,
 backward and the AdamW update, and never waits for the card: the loss is
-read on the host only at the log steps.  Data-parallel training over
-several cards is not ported.
+read on the host only at the log steps.  ``train(..., mesh=...)`` runs
+the step data-parallel over a ``utils/mesh.py`` mesh of ranks (the global
+crop batch split over every rank, the gradients added in rank order); the
+command takes no mesh, as the JAX trainer's takes none.
 
 ``--out`` defaults to the packaged checkpoint,
 ``aegis_tpu_torch/models/weights/pitchnet_v1.npz``, as the JAX trainer's
@@ -32,6 +34,7 @@ import torch
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.models import pitchnet as pn
 from aegis_tpu_torch.models.data import LABEL_HOP, make_clips
+from aegis_tpu_torch.utils.mesh import Mesh, rank_device
 
 
 def evaluate(net: pn.PitchNet, n_clips: int = 192, clip_len: int = 16384,
@@ -81,13 +84,18 @@ def evaluate(net: pn.PitchNet, n_clips: int = 192, clip_len: int = 16384,
 def train(steps: int = 3000, batch: int = 256, clips: int = 2048,
           clip_len: int = 16384, seed: int = 0, out: str | None = None,
           log_every: int = 200, data_kwargs: dict | None = None,
-          device="cuda", log: Callable[[dict], None] | None = None):
+          device="cuda", log: Callable[[dict], None] | None = None,
+          mesh: Mesh | None = None):
     """Train a fresh PitchNet on ``device``; returns (net, metrics) and
     writes the checkpoint to ``out`` when given.  ``log``, when given, gets
     what the progress lines print, unrounded: ``{"data_s": ...}`` once the
     bank is made, then ``{"step": i, "loss": ..., "elapsed_s": ...}`` at
-    every log step."""
-    device = resolve_device(device)
+    every log step.  On a ``mesh`` every rank holds the bank and a replica
+    of the net, each step is data-parallel over the ranks
+    (``pitchnet.make_train_step``), every rank returns the same net and
+    metrics, and rank 0 alone prints and writes the checkpoint."""
+    device = rank_device(mesh, device)
+    lead = mesh is None or mesh.rank == 0
     if clip_len < 2 * pn.WIN:
         # the crop sampler needs room for a full window plus the attack
         # region; a smaller clip would give randint an empty range
@@ -95,8 +103,9 @@ def train(steps: int = 3000, batch: int = 256, clips: int = 2048,
     t0 = time.time()
     d = make_clips(clips, clip_len, seed=seed, **(data_kwargs or {}))
     data_s = time.time() - t0
-    print(f"# data: {clips} clips x {clip_len} samples "
-          f"({data_s:.1f}s to synthesize)", file=sys.stderr)
+    if lead:
+        print(f"# data: {clips} clips x {clip_len} samples "
+              f"({data_s:.1f}s to synthesize)", file=sys.stderr)
     if log:
         log({"data_s": data_s})
 
@@ -106,7 +115,7 @@ def train(steps: int = 3000, batch: int = 256, clips: int = 2048,
     net, opt = pn.init_train_state(seed, lr=lr, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed + 1)
-    step_fn = pn.make_train_step(batch, lr=lr)
+    step_fn = pn.make_train_step(batch, lr=lr, mesh=mesh)
 
     t0 = time.time()
     loss = None
@@ -116,16 +125,21 @@ def train(steps: int = 3000, batch: int = 256, clips: int = 2048,
         if i % log_every == 0 or i == steps - 1:
             record = {"step": i, "loss": float(loss),
                       "elapsed_s": time.time() - t0}
-            print(f"# step {i:5d}  loss {record['loss']:.4f}  "
-                  f"({record['elapsed_s']:.1f}s)", file=sys.stderr)
+            if lead:
+                print(f"# step {i:5d}  loss {record['loss']:.4f}  "
+                      f"({record['elapsed_s']:.1f}s)", file=sys.stderr)
             if log:
                 log(record)
     train_s = time.time() - t0
+    if mesh is not None:   # every rank reports rank 0's time
+        train_s = float(mesh.gather_world(
+            torch.tensor([train_s], dtype=torch.float64,
+                         device=device))[0][0])
 
     metrics = {"loss": float(loss), "steps": steps,
                "train_s": round(train_s, 1),
                **evaluate(net, device=device)}
-    if out:
+    if out and lead:
         saved = pn.save_params(net, out, metrics=metrics)
         print(f"# saved {saved}", file=sys.stderr)
     return net, metrics

@@ -9,8 +9,8 @@ financial (v2) engine, the tiled, streamed and folder-batch modes, the
 live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
 the self-verification loops, the REST server, the PitchNet trainer, the
-validation tools and the Streamlit apps, in twenty-eight phases; each
-raises on failure:
+validation tools, the Streamlit apps and the multi-device paths, in
+twenty-nine phases; each raises on failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -231,6 +231,32 @@ raises on failure:
                rerun's wall ms (warm median of 5, CUDA events, where the
                rerun repeats), device busy ms and launches (profiled) and
                its facade's ms, beside the card's name and power limit.
+ 29. mesh    — the multi-device paths (aegis_tpu_torch/utils/mesh.py) on
+               the one card.  A world of one NCCL rank in this process:
+               run_analyze_batch v1 and financial on the four-track folder
+               (seeds 42-45, 60 s at 22 050 Hz, default TurboConfig),
+               run_analyze_poly_turbo on the 60 s chord track,
+               run_analyze_streamed on the 10-minute track,
+               run_analyze_neural_batch on the folder and 20 training
+               steps at batch 256 (train_on_batches), each on a (1, 1)
+               mesh bit for bit equal to its call with no mesh, with the
+               same launches at the same shapes.  Two gloo ranks sharing
+               the card (spmd, collectives staged through the host): the
+               batch v1 and financial at (2, 1), and at (1, 2) on the
+               tracks cut to 2 x tile_frames frames, the neural batch at
+               (2, 1), the 20 steps twice; every rank's result equal, the
+               rows within the parity tests' tolerances of the
+               one-process program (and whether bit-equal), the distortion
+               score's summation-order gap, event F1 >= 0.99 against the
+               one-process run, truth F1 no more than 0.01 under it, the
+               loss within rtol 1e-5 of world 1 and the two runs bitwise
+               equal; one launch of each kernel a rank and call (none for
+               neural and training), each per-rank shape held to the plain
+               versions on that rank's observations and timed.  Then
+               graft_entry_torch.dryrun_multichip(1) on NCCL and (2) over
+               gloo.  Prints the backend, world, mesh, staging, each
+               rank's device and the wall ms a call (median of 5, CUDA
+               events).
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -250,6 +276,7 @@ import io
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -302,6 +329,7 @@ from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
                                               generate_mixed_clip,
                                               generate_scale_benchmark,
                                               generate_test_track)
+from aegis_tpu_torch.utils import mesh as mesh_lib
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
 
 HOP = 512
@@ -3625,6 +3653,350 @@ def phase_apps(dev, tracks, errs: dict, total: dict, timed: dict) -> list:
     return [(what, counts, timed[key]) for what, counts, key in paths]
 
 
+# ------------------------------------------------------------------- mesh
+
+MESH_SEEDS = (42, 43, 44, 45)     # the four-track folder of phase 8
+MESH_TRAIN_STEPS, MESH_TRAIN_BATCH, MESH_TRAIN_CLIPS = 20, 256, 64
+
+
+def mesh_train_batches() -> list:
+    """The global crop batches of the mesh's training steps, as NumPy
+    (windows, f0, voicing, label weights), from a seeded bank: the same
+    crops for every world size."""
+    d = make_clips(MESH_TRAIN_CLIPS, 16384, seed=3)
+    bank = [torch.from_numpy(d[k]) for k in ("tracks", "scale", "f0_hz",
+                                             "voiced", "label_w")]
+    rng = np.random.default_rng(3)
+    out = []
+    for _ in range(MESH_TRAIN_STEPS):
+        ci = torch.from_numpy(rng.integers(0, MESH_TRAIN_CLIPS,
+                                           MESH_TRAIN_BATCH))
+        off = torch.from_numpy(rng.integers(0, 16384 - tpn.WIN + 1,
+                                            MESH_TRAIN_BATCH))
+        out.append(tuple(t.numpy() for t in tpn.crop_batch(
+            *bank[:4], ci, off, bank[4])))
+    return out
+
+
+def batch_events(out: dict, sr: int, financial: bool) -> list:
+    """Each track's note events (seconds) of a batched analyze result, with
+    the facades' extraction defaults (as transcribe_folder extracts)."""
+    events = []
+    for i in range(len(out["f0"])):
+        r = {k: (v[i] if np.ndim(v) else v) for k, v in out.items()}
+        if financial:
+            ev, _ = AegisFinancialEngine(sample_rate=sr, device="cpu"
+                                         ).extract_events(r)
+        else:
+            ev = AegisEngine(sample_rate=sr, device="cpu").extract_events(
+                raw_of(r), None, confidence_threshold=0.3)
+        events.append(secs(ev, sr))
+    return events
+
+
+def rows_close(got: dict, ref: dict) -> dict:
+    """A mesh program's rows against the one-process program's: whether
+    they are bit-equal, each discrete row's agreement, the largest float
+    gap (f0 relative where both are voiced; mel_db in dB), and the gap of
+    the distortion score, whose partial sums add in another order."""
+    out = {"bit_equal": mesh_lib.results_equal(
+        {k: v for k, v in got.items() if k != "distortion_score"},
+        {k: v for k, v in ref.items() if k != "distortion_score"}),
+        "discrete_agreement": 1.0, "float_max_gap": 0.0,
+        "f0_max_rel_gap": 0.0, "mel_db_max_gap": 0.0,
+        "distortion_score_max_gap": 0.0}
+    for k in ref:
+        a, b = np.asarray(got[k]), np.asarray(ref[k])
+        if a.shape != b.shape:
+            raise AssertionError(f"row {k}: shape {a.shape}, one process "
+                                 f"{b.shape}")
+        if b.dtype == bool or b.dtype.kind == "i":
+            out["discrete_agreement"] = min(out["discrete_agreement"],
+                                            float((a == b).mean()))
+        elif k == "f0":
+            m = ~np.isnan(a) & ~np.isnan(b)
+            out["f0_max_rel_gap"] = float(np.max(
+                np.abs(a[m] - b[m]) / b[m], initial=0.0))
+        else:
+            gap = float(np.nanmax(np.abs(a.astype(np.float64) - b),
+                                  initial=0.0))
+            key = {"mel_db": "mel_db_max_gap",
+                   "distortion_score": "distortion_score_max_gap"}.get(
+                       k, "float_max_gap")
+            out[key] = max(out[key], gap)
+    return out
+
+
+def rows_close_enough(c: dict) -> bool:
+    """Bit-equal, or the one-device parity tests' tolerances
+    (tests/test_torch_turbo.py): discrete rows agree on more than 0.999,
+    f0 within 1e-4 relative, other floats within 1e-4; mel_db within 1e-2
+    dB: a rank's matmuls run on fewer rows than the one-process program's,
+    and the dB of a bin far below the frame's energy keeps the cancellation
+    of its DFT sums (3.5e-3 dB between blocks of 6 and 12 slabs in a CPU
+    run of this phase at 1 s a track)."""
+    return (c["bit_equal"] or (c["discrete_agreement"] > 0.999
+                               and c["f0_max_rel_gap"] < 1e-4
+                               and c["float_max_gap"] < 1e-4
+                               and c["mel_db_max_gap"] < 1e-2)) \
+        and c["distortion_score_max_gap"] < 1e-4
+
+
+def rank_block_obs(ys: list, dev, rows: slice, tile_index, n_tiles: int):
+    """The decode's observations (B, T, n) of one rank's block of the tiled
+    batch program: its tracks ``rows``, its tiles ``tile_index``; the halos
+    of the one-process slabs are the ones the mesh exchanges."""
+    audio = AudioConfig(sample_rate=22050)
+    turbo = TurboConfig()
+    tables = tables_from_numpy(audio, CFG, dev)
+    y16, scale = tturbo._tiled_inputs(
+        np.stack(ys)[rows], n_tiles * turbo.tile_frames * HOP, "int16", dev)
+    slabs = tturbo.tile_slabs(y16, scale, audio, CFG, turbo, n_tiles)
+    slabs = slabs.reshape(y16.shape[0], n_tiles, -1)[:, tile_index]
+    frames = tturbo._frame_slab(slabs.reshape(-1, slabs.shape[-1]),
+                                turbo.tile_frames + 2 * turbo.halo_frames,
+                                HOP, CFG.frame_length, 0)
+    obs, vprob = tpyin.frame_observations(frames, 22050, CFG, tables)
+    return obs, vprob, tables
+
+
+def phase_mesh(dev, chord60, y10, errs: dict, total: dict,
+               per_call: dict) -> dict:
+    """The multi-device paths (utils/mesh.py) on the one card: a world of
+    one NCCL rank in this process, each call on a (1, 1) mesh bit for bit
+    equal to its one-process call with the same launches at the same
+    shapes; two gloo ranks sharing the card at (2, 1) and (1, 2), equal to
+    the one-process program on tile counts the time axis divides; the
+    dryrun twin on both; each per-rank Viterbi shape held to the plain
+    versions and timed.  Returns the kernels line's rows."""
+    import torch.distributed as dist
+
+    import graft_entry_torch
+
+    audio = AudioConfig(sample_rate=22050)
+    with_truth = [generate_bench_track(60.0, sr=22050, seed=s,
+                                       return_truth=True) for s in MESH_SEEDS]
+    ys = [y for y, _ in with_truth]
+    batch = np.stack(ys)
+    batches = mesh_train_batches()
+    lrs = [tpn.lr_schedule(MESH_TRAIN_STEPS)(i)
+           for i in range(MESH_TRAIN_STEPS)]
+    tree = tpn.params_to_numpy(tpn.init_params(0, device="cpu"))
+    calls = {
+        "run_analyze_batch v1, 4 x 60 s": lambda **kw: tturbo.run_analyze_batch(
+            batch, audio, CFG, device=dev, **kw),
+        "run_analyze_batch financial, 4 x 60 s":
+            lambda **kw: tturbo.run_analyze_batch(
+                batch, audio, CFG, financial=True, device=dev, **kw),
+        "run_analyze_poly_turbo, chord 60 s": lambda **kw:
+            tturbo.run_analyze_poly_turbo(chord60, device=dev, **kw),
+        "run_analyze_streamed, 10 minutes": lambda **kw:
+            tturbo.run_analyze_streamed(y10, audio, CFG, device=dev, **kw),
+        "run_analyze_neural_batch, 4 x 60 s": lambda **kw:
+            tpn.run_analyze_neural_batch(batch, 22050, HOP, device=dev, **kw),
+        f"train_on_batches, {MESH_TRAIN_STEPS} steps at batch "
+        f"{MESH_TRAIN_BATCH}": lambda **kw: tpn.train_on_batches(
+            tree, batches, lrs, device=dev, **kw),
+    }
+    # the one-process calls first, and their times: no process group yet
+    refs = {name: run_counted(fn)[:2] + (launched_shapes(), cuda_ms(fn))
+            for name, fn in calls.items()}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = mesh_lib.Mesh(1, 1, device="cuda")
+            for name, fn in calls.items():
+                out, counts, _ = run_counted(lambda: fn(mesh=mesh))
+                shapes = launched_shapes()
+                add_counts(total, counts)
+                ref_out, ref_counts, ref_shapes, ref_ms = refs[name]
+                row = {"phase": "mesh", "world": 1, "backend": mesh.backend,
+                       "mesh": mesh.shape, "staging": mesh.staging,
+                       "rank_devices": [str(mesh.device)], "call": name,
+                       "bit_equal_to_one_process":
+                           mesh_lib.results_equal(out, ref_out),
+                       "launches": counts, "one_process_launches": ref_counts,
+                       "shapes": {k: {str(s): c for s, c in v.items()}
+                                  for k, v in shapes.items()},
+                       "wall_ms": cuda_ms(lambda: fn(mesh=mesh)),
+                       "one_process_wall_ms": ref_ms}
+                emit(row)
+                if not row["bit_equal_to_one_process"]:
+                    raise AssertionError(f"mesh (1, 1) {name}: differs from "
+                                         "the one-process call")
+                if counts != ref_counts or shapes != ref_shapes:
+                    raise AssertionError(f"mesh (1, 1) {name}: launches "
+                                         f"{shapes}, one process {ref_shapes}")
+                rows[name] = (counts, shapes)
+        finally:
+            dist.destroy_process_group()
+
+    # two gloo ranks on the one card: tracks over data, tiles over time
+    turbo = TurboConfig()
+    cut = [y[:(2 * turbo.tile_frames - 1) * HOP] for y in ys]   # 2 tiles
+    one = {"v1": tturbo.run_analyze_batch(batch, audio, CFG, device=dev),
+           "financial": tturbo.run_analyze_batch(batch, audio, CFG,
+                                                 financial=True, device=dev),
+           "v1_cut": tturbo.run_analyze_batch(np.stack(cut), audio, CFG,
+                                              device=dev),
+           "financial_cut": tturbo.run_analyze_batch(
+               np.stack(cut), audio, CFG, financial=True, device=dev),
+           "neural": tpn.run_analyze_neural_batch(batch, 22050, HOP,
+                                                  device=dev),
+           "train": tpn.train_on_batches(tree, batches, lrs, device=dev)}
+    C = mesh_lib.call
+    gloo_calls = [
+        ("v1", (2, 1), C(tturbo.run_analyze_batch, batch, audio, CFG,
+                         mesh_shape=(2, 1), reps=5)),
+        ("financial", (2, 1), C(tturbo.run_analyze_batch, batch, audio, CFG,
+                                financial=True, mesh_shape=(2, 1), reps=5)),
+        ("v1_cut", (1, 2), C(tturbo.run_analyze_batch, np.stack(cut), audio,
+                             CFG, mesh_shape=(1, 2), reps=5)),
+        ("financial_cut", (1, 2), C(tturbo.run_analyze_batch, np.stack(cut),
+                                    audio, CFG, financial=True,
+                                    mesh_shape=(1, 2), reps=5)),
+        ("neural", (2, 1), C(tpn.run_analyze_neural_batch, batch, 22050, HOP,
+                             mesh_shape=(2, 1), reps=5)),
+        ("train", (2, 1), C(tpn.train_on_batches, tree, batches, lrs,
+                            mesh_shape=(2, 1))),
+        ("train_again", (2, 1), C(tpn.train_on_batches, tree, batches, lrs,
+                                  mesh_shape=(2, 1))),
+    ]
+    t0 = time.perf_counter()
+    records = mesh_lib.spmd(mesh_lib.run_calls, 2, 1,
+                            [c for _, _, c in gloo_calls], device="cuda",
+                            backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    for rec in records[1:]:
+        if not mesh_lib.results_equal(rec["result"], records[0]["result"]):
+            raise AssertionError(f"gloo rank {rec['rank']} returned another "
+                                 "result than rank 0")
+    results = records[0]["result"]
+    emit({"phase": "mesh", "world": 2, "backend": records[0]["backend"],
+          "staging": records[0]["staging"], "spawn_and_run_s": spawn_s,
+          "rank_devices": [r["device"] for r in records]})
+    if records[0]["staging"] != "host":
+        raise AssertionError("gloo on CUDA must stage through the host")
+
+    at = {key: i for i, (key, _, _) in enumerate(gloo_calls)}
+    checked = {}   # per-rank shape -> its kernels row
+    for i, (key, shape, _) in enumerate(gloo_calls):
+        got = results[i]
+        per_rank = [r["calls"][i] for r in records]
+        row = {"phase": "mesh", "world": 2, "backend": "gloo",
+               "mesh": per_rank[0]["mesh"], "call": key,
+               "wall_ms_per_rank": [statistics.median(c["ms"])
+                                    for c in per_rank],
+               "launches_per_rank": [c["launches"] for c in per_rank],
+               "shapes_per_rank": [{k: {str(s): n for s, n in v.items()}
+                                    for k, v in c["shapes"].items()}
+                                   for c in per_rank]}
+        for c in per_rank:
+            add_counts(total, c["launches"])
+        if key.startswith("train"):
+            losses, ref_losses = got[1], one["train"][1]
+            row["loss_max_rel_gap_vs_world_1"] = float(np.max(
+                np.abs(np.array(losses) - ref_losses) / np.abs(ref_losses)))
+            row["bitwise_equal_to_the_other_run"] = mesh_lib.results_equal(
+                results[at["train"]], results[at["train_again"]])
+            emit(row)
+            if row["loss_max_rel_gap_vs_world_1"] > 1e-5:
+                raise AssertionError(f"gloo train: loss {losses} against "
+                                     f"world 1 {ref_losses}")
+            if not row["bitwise_equal_to_the_other_run"]:
+                raise AssertionError("gloo train: two runs differ")
+            continue
+        row["rows_vs_one_process"] = close = rows_close(got, one[key])
+        if key != "neural":
+            fin = key.startswith("financial")
+            ev, ev1 = (batch_events(got, 22050, fin),
+                       batch_events(one[key], 22050, fin))
+            row["f1_vs_one_process"] = min(f1_of(a, b)
+                                           for a, b in zip(ev1, ev))
+            if not key.endswith("_cut"):
+                tr = [truth for _, truth in with_truth]
+                row["truth_f1"] = [f1_of(t, e) for t, e in zip(tr, ev)]
+                row["one_process_truth_f1"] = [f1_of(t, e)
+                                               for t, e in zip(tr, ev1)]
+        emit(row)
+        if not rows_close_enough(close):
+            raise AssertionError(f"gloo {key}: rows differ from the "
+                                 f"one-process program: {close}")
+        if row.get("f1_vs_one_process", 1.0) < 0.99:
+            raise AssertionError(f"gloo {key}: F1 {row['f1_vs_one_process']}")
+        for a, b in zip(row.get("truth_f1", []),
+                        row.get("one_process_truth_f1", [])):
+            if a < b - TRUTH_SLACK:
+                raise AssertionError(f"gloo {key}: truth F1 {a} under {b}")
+        want = 0 if key == "neural" else 1
+        for c in per_rank:
+            if any(n != want for n in c["launches"].values()):
+                raise AssertionError(f"gloo {key}: launches {c['launches']}")
+        # every per-rank shape held to the plain versions on that rank's
+        # own observations, and timed
+        n_tiles = 2 if key.endswith("_cut") else n_tiles_of(
+            ys[0], 22050, turbo)
+        for r, c in enumerate(per_rank):
+            for s in c["shapes"]["viterbi_fwd"]:
+                if s in checked:
+                    continue
+                data_i, time_i = divmod(r, shape[1])
+                b = len(ys) // shape[0]
+                k = n_tiles // shape[1]
+                obs, vprob, tables = rank_block_obs(
+                    cut if key.endswith("_cut") else ys, dev,
+                    slice(data_i * b, (data_i + 1) * b),
+                    slice(time_i * k, (time_i + 1) * k), n_tiles)
+                lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+                if tuple(lo_v.shape[:2]) + (CFG.n_pitch_bins,
+                                            tables.half_width) != s:
+                    raise AssertionError(f"gloo {key}: rank {r} launched "
+                                         f"{s}, its block is {lo_v.shape}")
+                compare_kernels(f"mesh_{key}_{shape}_rank{r}", lo_v, lo_u,
+                                tables.band, tables.band_tab,
+                                tables.half_width, 1.0, errs)
+                trow = time_kernels(obs, vprob, tables, False)
+                emit({"phase": "times", "what": "viterbi_mesh", "of": key,
+                      "mesh": shape, "rank": r, **trow["shape"],
+                      "median_ms": trow})
+                checked[s] = (f"gloo mesh {shape} {key}: rank {r}'s block",
+                              c["launches"], trow)
+
+    # the world-1 NCCL shapes: the batch's B = 4 x 3 tiles (the stream's
+    # slab shape is phase 7's)
+    for name in ("run_analyze_batch v1, 4 x 60 s",
+                 "run_analyze_batch financial, 4 x 60 s"):
+        counts, shapes = rows[name]
+        for s in shapes["viterbi_fwd"]:
+            if s in checked:
+                continue
+            obs, vprob, tables = rank_block_obs(
+                ys, dev, slice(0, len(ys)), slice(None),
+                n_tiles_of(ys[0], 22050, turbo))
+            lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
+            compare_kernels("mesh_nccl_world1_batch", lo_v, lo_u, tables.band,
+                            tables.band_tab, tables.half_width, 1.0, errs)
+            trow = time_kernels(obs, vprob, tables, False)
+            emit({"phase": "times", "what": "viterbi_mesh", "of": name,
+                  "mesh": (1, 1), **trow["shape"], "median_ms": trow})
+            checked[s] = (f"NCCL mesh (1, 1) {name}", counts, trow)
+    stream_counts, stream_shapes = rows["run_analyze_streamed, 10 minutes"]
+    per_call["mesh_stream"] = stream_counts
+
+    # the dryrun twin: one NCCL rank, two gloo ranks on the card
+    for n, backend in ((1, None), (2, "gloo")):
+        t0 = time.perf_counter()
+        res = graft_entry_torch.dryrun_multichip(n, device="cuda",
+                                                 backend=backend)
+        emit({"phase": "mesh", "what": "dryrun_multichip", "n": n,
+              "backend": backend or "nccl", "seconds":
+              time.perf_counter() - t0, **res})
+    return {"checked": list(checked.values()),
+            "stream": stream_counts}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
@@ -3732,6 +4104,12 @@ def main() -> int:
                               *(row for _, _, row in validate_rows))}
     apps_rows = timed("apps", phase_apps, dev, tracks, errs, total,
                       timed_shapes)
+
+    # the multi-device paths on the one card: a world of one NCCL rank, two
+    # gloo ranks sharing the card, the dryrun twin
+    mesh_rows = timed("mesh", phase_mesh, dev,
+                      chord_tracks[("chord60", 22050)][0], y10, errs, total,
+                      per_call)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -3772,7 +4150,11 @@ def main() -> int:
         (f"live v1, tile {tile} / halo {halo}, 60 s at {sr} Hz, one tile a "
          "launch", per_call[("live", sr, tile, halo)],
          live_ms[(sr, tile, halo)])
-        for sr in (22050, 44100) for tile, halo in LIVE_PRESETS] + apps_rows
+        for sr in (22050, 44100) for tile, halo in LIVE_PRESETS] + apps_rows + [
+        ("mesh (1, 1) on NCCL: run_analyze_streamed, 10 minutes at 22 050 Hz "
+         "in slabs of 16 tiles; times at the stream's shape above",
+         mesh_rows["stream"], tiles_ms["stream_slab_22050"])
+    ] + mesh_rows["checked"]
 
     def entry(name: str) -> dict:
         first = by_shape[0][2]

@@ -568,3 +568,65 @@ def test_profile_kernels_reads_what_the_event_tree_reads(cuda, monkeypatch):
         assert kernels[name][1] == n, name
         assert abs(kernels[name][0] - us) <= 1e-3, name
     assert any("viterbi" in name for name in kernels)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_equals_the_one_process_program(cuda, tmp_path):
+    """A world of one NCCL rank in this process: the tiled batch on a (1, 1)
+    mesh is bit for bit the call with no mesh, with the same launches."""
+    import torch.distributed as dist
+
+    from aegis_tpu_torch.config import AudioConfig, TurboConfig
+    from aegis_tpu_torch.engine import turbo
+    from aegis_tpu_torch.utils import mesh as mesh_lib
+
+    sr = 22050
+    t = np.arange(sr) / sr
+    ys = np.stack([0.4 * np.sin(2 * np.pi * f * t) for f in (196.0, 261.63)]
+                  ).astype(np.float32)
+    audio, tc = AudioConfig(sample_rate=sr), TurboConfig(tile_frames=16,
+                                                         halo_frames=8)
+    before = dict(pyin_cuda.LAUNCHES)
+    ref = turbo.run_analyze_batch(ys, audio, CFG, turbo=tc, financial=True,
+                                  device=cuda)
+    one = {k: v - before[k] for k, v in pyin_cuda.LAUNCHES.items()}
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.Mesh(1, 1, device="cuda")
+        assert mesh.backend == "nccl" and mesh.staging == "none"
+        before = dict(pyin_cuda.LAUNCHES)
+        got = turbo.run_analyze_batch(ys, audio, CFG, turbo=tc,
+                                      financial=True, device="cuda",
+                                      mesh=mesh)
+        assert {k: v - before[k] for k, v in pyin_cuda.LAUNCHES.items()} \
+            == one == {"viterbi_fwd": 1, "viterbi_back": 1}
+        assert mesh_lib.results_equal(got, ref)
+    finally:
+        dist.destroy_process_group()
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="one card a rank"):
+        mesh_lib.spmd(turbo.run_analyze_batch, 1, n + 1, ys, audio, CFG,
+                      device="cuda")
+
+
+@pytest.mark.cuda
+def test_gloo_on_the_card_stages_through_the_host(cuda, tmp_path):
+    """Gloo ranks that share a card: every collective copies to the host and
+    back, and hands the card's tensor back on the card, unchanged."""
+    import torch.distributed as dist
+
+    from aegis_tpu_torch.utils import mesh as mesh_lib
+
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.Mesh(1, 1, device="cuda", backend="gloo")
+        assert mesh.staging == "host"
+        x = torch.arange(12.0, device=cuda).reshape(3, 4)
+        for got in (mesh.gather_world(x)[0], mesh.pmax_time(x),
+                    mesh.psum_world(x), mesh.all_gather_time(x, dim=1)):
+            assert got.device == x.device and torch.equal(got, x)
+        assert mesh.halo(x[:, :2], x[:, 2:]) == (None, None)
+    finally:
+        dist.destroy_process_group()

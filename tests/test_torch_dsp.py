@@ -96,3 +96,16 @@ def test_db_and_pitch_helpers_match_jax(name):
         assert got.max() == 0.0 and got.min() >= -80.0 - 1e-6
     else:   # within two float32 ulps
         np.testing.assert_allclose(got, ref, rtol=2e-7, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["numpy", "float"])
+def test_hz_to_midi_takes_numpy_arrays_and_floats(kind):
+    """As the reference's (jnp.log2 takes both): the NumPy array or float
+    gives what its tensor gives, within two float32 ulps of JAX."""
+    x = (np.random.default_rng(12).uniform(40.0, 2000.0, 100).astype(np.float32)
+         if kind == "numpy" else 196.0)
+    got = tdsp.hz_to_midi(x)
+    assert torch.equal(got, tdsp.hz_to_midi(torch.as_tensor(x)))
+    ref = np.asarray(jdsp.hz_to_midi(x))
+    assert got.numpy().dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-7, atol=0)

@@ -520,6 +520,58 @@ _TOOL_PATHS = (
 )
 
 
+# the package root: its names resolve and it imports no engine
+_ROOT_IMPORT = (
+    "import aegis_tpu_torch\n"
+    "assert not [m for m in sys.modules\n"
+    "            if m.startswith('aegis_tpu_torch.engine')], 'engine loaded'\n"
+    "assert aegis_tpu_torch.AudioConfig and aegis_tpu_torch.PyinConfig\n"
+    "assert aegis_tpu_torch.DetectorConfig\n"
+)
+
+# the multi-device paths on a world of one gloo rank in the process (the
+# guards see its imports; tests/test_torch_mesh*.py spawn the real ranks),
+# the engines from the package root, the folder from engine.poly
+_MESH_PATHS = (
+    "import torch, torch.distributed as dist\n"
+    "import numpy as np, os, tempfile\n"
+    "import aegis_tpu_torch, graft_entry_torch\n"
+    "from aegis_tpu_torch.config import (AudioConfig as MA, PyinConfig as MP,\n"
+    "    TurboConfig as MT)\n"
+    "from aegis_tpu_torch.engine import turbo as mturbo\n"
+    "from aegis_tpu_torch.engine.poly import transcribe_folder as ptf\n"
+    "from aegis_tpu_torch.models import pitchnet as mpn\n"
+    "from aegis_tpu_torch.models.data import make_clips as mclips\n"
+    "from aegis_tpu_torch.utils.mesh import Mesh, run_calls, call\n"
+    "assert aegis_tpu_torch.AegisEngine(sample_rate=22050, device='cpu')\n"
+    "assert aegis_tpu_torch.AegisFinancialEngine(device='cpu')\n"
+    "dist.init_process_group('gloo', store=dist.FileStore(\n"
+    "    os.path.join(tempfile.mkdtemp(), 'store'), 1), rank=0, world_size=1)\n"
+    "mm = Mesh(1, 1, device='cpu')\n"
+    "ma, mt = MA(sample_rate=22050), MT(tile_frames=16, halo_frames=8)\n"
+    "ym = np.stack([y[:11025], y[11025:22050]])\n"
+    "assert mturbo.run_analyze_batch(ym, ma, MP(), turbo=mt, financial=True,\n"
+    "    device='cpu', mesh=mm)['trend'].shape[0] == 2\n"
+    "assert mturbo.run_analyze_streamed(y, ma, MP(), turbo=mt, slab_tiles=2,\n"
+    "    device='cpu', mesh=mm)['voiced_flag'].any()\n"
+    "assert run_calls([call(mturbo.run_analyze_poly_turbo, ym, turbo=mt,\n"
+    "    device='cpu')], mesh=mm)[0]['roll'].shape[0] == 2\n"
+    "assert mpn.run_analyze_neural_batch(ym, 22050, 512, financial=True,\n"
+    "    device='cpu', mesh=mm)['f0'].shape[0] == 2\n"
+    "md = mclips(8, 4096, ks_frac=0.0)\n"
+    "mbank = [torch.from_numpy(md[k]) for k in\n"
+    "         ('tracks', 'scale', 'f0_hz', 'voiced', 'label_w')]\n"
+    "mnet, mopt = mpn.init_train_state(0, hidden=(16,), device='cpu')\n"
+    "assert mpn.make_train_step(8, mesh=mm)(mnet, mopt, torch.Generator(), 0,\n"
+    "                                       *mbank) > 0\n"
+    "from aegis_tpu_torch.io import write_wav as mwrite\n"
+    "mdir = tempfile.mkdtemp()\n"
+    "mwrite(os.path.join(mdir, 'a.wav'), y, 22050)\n"
+    "assert ptf(mdir, device='cpu', mesh=mm)[0][2] > 0\n"
+    "dist.destroy_process_group()\n"
+)
+
+
 def test_port_never_imports_jax():
     """With jax made unimportable, the port still runs the v1 path fused,
     tiled and streamed, the financial engine, the folder sweep, a live v1
@@ -530,6 +582,7 @@ def test_port_never_imports_jax():
     code = (
         "import sys, os, tempfile\n"
         "sys.modules['jax'] = None\n"
+        + _ROOT_IMPORT +
         "import numpy as np, io\n"
         "from aegis_tpu_torch.io import write_wav\n"
         "from aegis_tpu_torch.engine.engine import AegisEngine\n"
@@ -557,7 +610,7 @@ def test_port_never_imports_jax():
         "    for i in range(0, len(y), 5000):\n"
         "        rt.feed(y[i:i + 5000])\n"
         "    assert rt.poll_events() and rt.finalize(), live_fin\n"
-        + _POLY_PATHS + _TOOL_PATHS +
+        + _POLY_PATHS + _TOOL_PATHS + _MESH_PATHS +
         "loaded = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert all(sys.modules[m] is None for m in loaded), loaded\n"
         "print('ok', len(events))\n")
@@ -616,7 +669,7 @@ def test_port_never_imports_the_jax_package():
         "        if name.split('.')[0] in ('aegis_tpu', 'jax', 'jaxlib'):\n"
         "            raise ImportError('refused: ' + name)\n"
         "sys.meta_path.insert(0, Refuse())\n"
-        + _PORT_PATHS +
+        + _ROOT_IMPORT + _PORT_PATHS + _MESH_PATHS +
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('aegis_tpu', 'jax', 'jaxlib')]\n"
         "assert not bad, bad\n"
@@ -629,6 +682,40 @@ def test_port_never_imports_the_jax_package():
     assert proc.stdout.splitlines()[-1].startswith("ok")
 
 
+@pytest.mark.parametrize("name", ["AudioConfig", "DetectorConfig",
+                                  "PyinConfig", "AegisEngine",
+                                  "AegisFinancialEngine"])
+def test_package_root_exports_the_references_names(name):
+    """The five names of aegis_tpu/__init__.py resolve on the port's root,
+    each the port's own class under the reference's module path; the
+    engines load lazily, and another name raises the reference's
+    AttributeError text."""
+    import dataclasses
+    import aegis_tpu
+    import aegis_tpu_torch
+    ours, ref = getattr(aegis_tpu_torch, name), getattr(aegis_tpu, name)
+    assert ours.__name__ == ref.__name__
+    assert ours.__module__ == "aegis_tpu_torch" + ref.__module__[len("aegis_tpu"):]
+    if dataclasses.is_dataclass(ref):
+        assert dataclasses.asdict(ours()) == dataclasses.asdict(ref())
+    for mod in (aegis_tpu, aegis_tpu_torch):
+        with pytest.raises(AttributeError,
+                           match=f"module '{mod.__name__}' has no attribute "
+                                 "'NotAName'"):
+            mod.NotAName
+
+
+def test_transcribe_folder_is_importable_from_engine_poly():
+    """Where the reference defines it (aegis_tpu/engine/poly.py), the same
+    object as engine.folder's."""
+    from aegis_tpu_torch.engine import folder, poly
+    from aegis_tpu_torch.engine.poly import transcribe_folder
+    assert transcribe_folder is folder.transcribe_folder
+    assert poly.transcribe_folder is folder.transcribe_folder
+    with pytest.raises(AttributeError, match="NotAName"):
+        poly.NotAName
+
+
 def test_no_port_file_names_the_jax_package_in_an_import():
     """Static: no file of the port, nor chip_smoke.py, imports aegis_tpu or
     jax, at the top or inside a function."""
@@ -637,7 +724,7 @@ def test_no_port_file_names_the_jax_package_in_an_import():
         r"|import_module\(\s*[\"'](aegis_tpu|jax)[.\"']"
         r"|__import__\(\s*[\"'](aegis_tpu|jax)[.\"']", re.M)
     files = sorted((REPO / "aegis_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "graft_entry_torch.py"]
     assert len(files) > 30
     bad = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert not bad, bad

@@ -388,7 +388,11 @@ def test_every_device_argument_defaults_to_the_card():
                 "apps.tuning_center.main", "apps.tuner_pro.main",
                 "apps.live_monitor.main", "apps.live_monitor.make_transcriber",
                 "apps.financial_batch.main", "apps.financial_realtime.main",
-                "apps.stem_lab.main", "apps.midi_sandbox.main"}
+                "apps.stem_lab.main", "apps.midi_sandbox.main",
+                "models.pitchnet.run_analyze_neural_batch",
+                "models.pitchnet.train_on_batches", "utils.mesh.Mesh",
+                "utils.mesh.default_mesh", "utils.mesh.spmd",
+                "utils.mesh.run_spmd"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -412,7 +416,8 @@ def test_every_device_argument_defaults_to_the_card():
     "verify_technique_by_audio_matching", "render_piano_roll",
     "AegisServer", "serve_main", "init_params", "init_train_state",
     "evaluate", "train", "validate", "run_benchmark", "sweep",
-    "make_transcriber"])
+    "make_transcriber", "run_analyze_neural_batch", "train_on_batches",
+    "run_spmd", "spmd", "dryrun_multichip"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
@@ -433,6 +438,8 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
     from aegis_tpu_torch.tools import (benchmark, inharmonic_sweep,
                                        validate_device)
     from aegis_tpu_torch.apps import live_monitor
+    from aegis_tpu_torch.utils import mesh
+    import graft_entry_torch
     monkeypatch.setattr(stems, "find_demucs", lambda: None)
     event = {"note": 57, "start": 0, "end": 6, "velocity": 90,
              "track": "main", "technique": None, "confidence": 0.9}
@@ -520,6 +527,15 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
                                                 poly_seeds=(1,), quiet=True),
         "make_transcriber": lambda: live_monitor.make_transcriber("v1", SR,
                                                                   None),
+        "run_analyze_neural_batch": lambda: pitchnet.run_analyze_neural_batch(
+            y[None], SR, 512, net),
+        "train_on_batches": lambda: pitchnet.train_on_batches(
+            pitchnet.params_to_numpy(net), [], [3e-4]),
+        "run_spmd": lambda: mesh.run_spmd(turbo.run_analyze_batch, 1, 1,
+                                          y[None], audio, TCFG),
+        "spmd": lambda: mesh.spmd(turbo.run_analyze_batch, 1, 1, y[None],
+                                  audio, TCFG),
+        "dryrun_multichip": lambda: graft_entry_torch.dryrun_multichip(1),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
