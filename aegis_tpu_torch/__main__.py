@@ -23,6 +23,9 @@ versions):
               packaged checkpoint, so name one to keep it
   validate    the F1 gate of the card against the CPU oracle
               (tools/validate_device.py): --quick; exit 1 on a failure
+  warmup      pay the first call's builds and set-up at install time: one
+              run of each --pipelines entry per --seconds duration on
+              silence; run it once after install, before serve
 """
 
 from __future__ import annotations
@@ -314,6 +317,113 @@ def cmd_serve(args) -> int:
     return 0
 
 
+WARM_PIPELINES = ("v1", "neural", "financial", "neural-financial", "poly",
+                  "stream", "neural-stream", "live-v1", "live-financial",
+                  "live-poly")
+
+
+def warmup(pipelines=("v1", "financial"), seconds=(60.0,), sr: int = 22050,
+           device="cuda") -> None:
+    """One run of each pipeline (``WARM_PIPELINES``) per duration, on
+    silence, through the port's facades; prints one ``warm`` line a run.
+
+    What a first call pays on the card and this moves to install time: the
+    nvcc build of the Viterbi kernels (csrc/viterbi.cu, into
+    ``build/aegis_tpu_torch/`` beside the package) and the g++ build of
+    the native host library (``~/.cache/aegis_tpu_torch``), which both stay
+    on disk for every later process; and, for this process only, the CUDA
+    context, the cuBLAS handle and cuFFT plans, the PitchNet checkpoint on
+    the device (the neural pipelines) and the kernel library's loading.  A
+    new process, such as the server started after this command, pays that
+    per-process part again (seconds, not the builds).  The live pipelines
+    feed one tile of silence to ``StreamingTranscriber`` /
+    ``StreamingPolyTranscriber``; the stream pipelines run the slab
+    program, whose shapes do not depend on the track's length."""
+    import time
+
+    import numpy as np
+
+    from aegis_tpu_torch import resolve_device
+    from aegis_tpu_torch.native import get_lib
+
+    bad = set(pipelines) - set(WARM_PIPELINES)
+    if bad:
+        raise ValueError(f"unknown pipeline(s) {sorted(bad)}; choose from "
+                         f"{sorted(WARM_PIPELINES)}")
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    get_lib()
+    if dev.type == "cuda":
+        from aegis_tpu_torch.core import pyin_cuda
+
+        pyin_cuda.library()
+    print(f"# builds ready in {time.perf_counter() - t0:.1f}s",
+          file=sys.stderr)
+
+    def run(pipe: str, y: np.ndarray) -> None:
+        if pipe.startswith("live-"):
+            from aegis_tpu_torch.engine import realtime
+
+            if pipe == "live-poly":
+                rt = realtime.StreamingPolyTranscriber(sample_rate=sr,
+                                                       device=dev)
+            else:
+                from aegis_tpu_torch.config import AudioConfig
+
+                rt = realtime.StreamingTranscriber(
+                    audio=AudioConfig(sample_rate=sr),
+                    financial=(pipe == "live-financial"), device=dev)
+            rt.feed(np.zeros(rt._tile_samp + 2 * rt._ctx + 1, np.float32))
+            return
+        if pipe == "poly":
+            from aegis_tpu_torch.engine.poly import AegisPolyEngine
+
+            AegisPolyEngine(sample_rate=sr, device=dev).analyze(y)
+            return
+        kw = {}
+        if pipe in ("neural", "neural-financial", "neural-stream"):
+            kw["pitch_backend"] = "neural"
+        if pipe.endswith("stream"):
+            kw["turbo_mode"] = "stream"
+        if pipe in ("financial", "neural-financial"):
+            from aegis_tpu_torch.engine.financial import AegisFinancialEngine
+
+            AegisFinancialEngine(sample_rate=sr,
+                                 device=dev).audio_to_midi_financial(
+                y, None, **kw)
+        else:
+            from aegis_tpu_torch.engine.engine import AegisEngine
+
+            AegisEngine(sample_rate=sr, device=dev).audio_to_midi(y, None,
+                                                                  **kw)
+
+    for sec in seconds:
+        y = np.zeros(int(sec * sr), np.float32)
+        for pipe in pipelines:
+            t0 = time.perf_counter()
+            run(pipe, y)
+            if dev.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(dev)
+            print(f"warm {pipe:>17s} @ {sec:g}s/{sr}Hz: "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+
+def cmd_warmup(args) -> int:
+    """Pay the first call's builds and set-up at install time (see
+    ``warmup``): one run of each requested pipeline per duration on
+    silence."""
+    try:
+        warmup(args.pipelines.split(","),
+               [float(s) for s in args.seconds.split(",")], args.sr,
+               args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="aegis_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -429,6 +539,17 @@ def main(argv=None) -> int:
     p.add_argument("--port", type=int, default=8508)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("warmup", description=cmd_warmup.__doc__)
+    p.add_argument("--sr", type=int, default=22050)
+    p.add_argument("--seconds", default="60",
+                   help="comma-separated durations to warm")
+    p.add_argument("--pipelines", default="v1,financial",
+                   help="comma-separated: " + ",".join(WARM_PIPELINES)
+                        + " (the live-* tile programs are what "
+                          "/api/stream-* runs)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_warmup)
 
     from aegis_tpu_torch.models import train
     from aegis_tpu_torch.tools import validate_device

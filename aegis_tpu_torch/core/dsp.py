@@ -2,8 +2,9 @@
 conversions (PyTorch).
 
 Counterpart of ``aegis_tpu/core/dsp.py``.  The STFT is the same real-DFT
-matmul pair (frames @ cos, frames @ sin) against ``dft_matrices``; the
-tables come from ``core.tables.tables_from_numpy``.
+matmul pair (frames @ cos, frames @ sin) against ``dft_matrices``, or with
+``use_matmul_dft=False`` the power of ``torch.fft.rfft``; the tables come
+from ``core.tables.tables_from_numpy``.
 """
 
 from __future__ import annotations
@@ -49,19 +50,27 @@ def frame_signal(y: torch.Tensor, frame_length: int, hop_length: int,
     return y_p.unfold(0, frame_length, hop_length)[:n_frames]
 
 
-def stft_power(y: torch.Tensor, hop_length: int, tables: Tables) -> torch.Tensor:
-    """|STFT|^2, centered reflect padding, periodic Hann.  (T, 1+n_fft//2)."""
+def stft_power(y: torch.Tensor, hop_length: int, tables: Tables,
+               use_matmul_dft: bool = True) -> torch.Tensor:
+    """|STFT|^2, centered reflect padding, periodic Hann.  (T, 1+n_fft//2).
+
+    ``use_matmul_dft`` (the default, and every engine's path) takes the
+    real-DFT matmul pair; False takes the power of ``torch.fft.rfft`` of
+    the windowed frames, as the JAX version's ``jnp.fft.rfft`` path."""
     n_fft = tables.window.shape[0]
     fw = frame_signal(y, n_fft, hop_length, "reflect") * tables.window[None, :]
+    if not use_matmul_dft:
+        spec = torch.fft.rfft(fw, dim=-1)
+        return (spec.real ** 2 + spec.imag ** 2).to(torch.float32)
     re = fw @ tables.dft_cos
     im = fw @ tables.dft_sin
     return re * re + im * im
 
 
-def melspectrogram_t(y: torch.Tensor, hop_length: int,
-                     tables: Tables) -> torch.Tensor:
+def melspectrogram_t(y: torch.Tensor, hop_length: int, tables: Tables,
+                     use_matmul_dft: bool = True) -> torch.Tensor:
     """Power mel spectrogram, time-major (T, n_mels)."""
-    return stft_power(y, hop_length, tables) @ tables.mel_fb_t
+    return stft_power(y, hop_length, tables, use_matmul_dft) @ tables.mel_fb_t
 
 
 def power_to_db(S: torch.Tensor, amin: float = 1e-10,

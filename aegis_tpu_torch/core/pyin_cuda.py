@@ -39,6 +39,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Tuple
 
@@ -67,33 +68,108 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 FWD_TILES = (88, 96)
 # the CTAs (one thread-block cluster) that share one sequence's forward pass
 FWD_CLUSTERS = (1, 2, 4, 8)
+# lanes a destination tile of each FWD_TILES entry (S in csrc/viterbi.cu);
+# every tile has D = 8 destinations
+_TILE_LANES = {88: 8, 96: 16}
+_TILE_D = 8
+# the most threads a CTA of the forward kernel is launched with, and the
+# warps of a cluster the one-pass kernel's block maximum takes
+FWD_MAX_THREADS = 512
+FWD_ONE_PASS_WARPS = 32
+# shared memory one block may ask for on an H100 (227 KB); the wrapper
+# reads the card's own figure (max_shared_memory)
+H100_MAX_SHARED_MEMORY = 227 * 1024
 
 
-def pick_forward_variant(B: int, n_sms: int) -> Tuple[int, int]:
-    """(tile, cluster) for B sequences on a card of n_sms SMs, as measured
-    on the H100 (tools/bench_viterbi.py; PERF.md): a few sequences spread
-    over clusters of 8 CTAs with two lanes a destination; more sequences
-    take clusters of 4, then 2, then one CTA each, so that all clusters
-    stay resident at once."""
+@dataclass(frozen=True)
+class ForwardLaunch:
+    """How csrc/viterbi.cu::launch_fwd launches one variant of the forward
+    pass: ``wide`` is viterbi_fwd_wide_kernel (the CTA's tiles in
+    ``passes`` passes of its threads), else viterbi_fwd_kernel (one tile a
+    thread); ``threads`` a CTA, ``warps`` across the cluster,
+    ``smem_bytes`` of dynamic shared memory a CTA, ``table_in_smem``
+    whether the expanded score table is among them."""
+    tile: int
+    cluster: int
+    wide: bool
+    threads: int
+    passes: int
+    warps: int
+    smem_bytes: int
+    table_in_smem: bool
+
+
+def forward_launch(n: int, w: int, tile: int, cluster: int,
+                   max_smem: int) -> ForwardLaunch:
+    """The launcher's arithmetic for n states, band half-width w, one
+    (tile, cluster) variant and ``max_smem`` bytes of shared memory a block;
+    raises ValueError naming the limit when the variant cannot launch.
+    csrc/viterbi.cu::launch_fwd computes the same."""
+    if tile not in FWD_TILES or cluster not in FWD_CLUSTERS:
+        raise ValueError(f"tile {tile} / cluster {cluster}: not one of "
+                         f"{FWD_TILES} / {FWD_CLUSTERS}")
+    if n < 1 or w < 0:
+        raise ValueError(f"the CUDA decode takes n >= 1 states and a band "
+                         f"half-width w >= 0, got n={n}, w={w}")
+    d, lanes_a_tile = _TILE_D, _TILE_LANES[tile]
+    tiles_per_cta = -(-(-(-n // d)) // cluster)
+    lanes = tiles_per_cta * lanes_a_tile
+    threads = -(-lanes // 32) * 32
+    wide = (threads > FWD_MAX_THREADS
+            or cluster * (threads // 32) > FWD_ONE_PASS_WARPS)
+    passes = 1
+    if wide:
+        passes = -(-lanes // FWD_MAX_THREADS)
+        threads = -(-(-(-lanes // passes)) // 32) * 32
+    warps = cluster * (threads // 32)
+    warp_slots = warps if wide else FWD_ONE_PASS_WARPS
+    # csrc/viterbi.cu: groups_per_lane, tile_span, row_stride, delta_stride
+    span = 4 * lanes_a_tile * (-(-(2 * w + d) // (4 * lanes_a_tile)))
+    np_ = (n + max(span, 2 * w) + d + 3) // 4 * 4
+    fixed = 4 * (2 * 2 * np_ + 2 * 2 * warp_slots) + 4 * (np_ + 2 * 2 * warp_slots)
+    n_cls = n if n < 2 * w + 1 else w + 1
+    row = (span + d - 1 + 3) // 4 * 4
+    table = (n_cls * row + 3) // 4 * 4 * 4
+    if fixed > max_smem:
+        raise ValueError(
+            f"the CUDA decode at n={n}, w={w} (tile {tile}, cluster "
+            f"{cluster}) needs {fixed} bytes of shared memory for its delta "
+            f"buffers, over the {max_smem} a block may take")
+    in_smem = fixed + table <= max_smem
+    return ForwardLaunch(tile, cluster, wide, threads, passes, warps,
+                         fixed + (table if in_smem else 0), in_smem)
+
+
+def pick_forward_variant(B: int, n_sms: int, n: int, w: int,
+                         max_smem: int) -> ForwardLaunch:
+    """The launch of B sequences of n states on a card of n_sms SMs, as
+    measured on the H100 (tools/bench_viterbi.py; PERF.md): a few
+    sequences spread over clusters of 8 CTAs with two lanes a destination
+    (tile 96); more sequences take clusters of 4, then 2, then one CTA
+    each (tile 88), so that all clusters stay resident at once.  The
+    (tile, cluster) does not depend on n: every variant launches wherever
+    the delta buffers fit ``max_smem`` (``forward_launch`` raises where
+    they do not)."""
     if 16 * B <= n_sms:
-        return 96, 8
-    for cluster in (4, 2):
-        if cluster * B <= n_sms:
-            return 88, cluster
-    return 88, 1
+        tile, cluster = 96, 8
+    else:
+        tile, cluster = next(((88, c) for c in (4, 2) if c * B <= n_sms),
+                             (88, 1))
+    return forward_launch(n, w, tile, cluster, max_smem)
 
 
 def max_shared_memory(dev: torch.device) -> int:
     """The bytes of shared memory one block may ask for on this card."""
     return getattr(torch.cuda.get_device_properties(dev),
-                   "shared_memory_per_block_optin", 227 * 1024)
+                   "shared_memory_per_block_optin", H100_MAX_SHARED_MEMORY)
 
 
 # frames a chunk of the backtrace
 BACK_CHUNK = 64
 # most frames one decode takes: with log-probabilities no smaller than
 # LOG_FLOOR it keeps |delta| below 2^27, where the forward kernel's
-# out-of-band rule is exact (csrc/viterbi.cu)
+# out-of-band rule is exact (csrc/viterbi.cu); about 3.4 hours of audio at
+# 44 100 Hz, hop 512, in one fused call
 MAX_FRAMES = 1 << 20
 
 _LIB = None
@@ -357,11 +433,16 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
     device; without it the table is built from ``band`` on the host, which
     waits for the device.
 
-    What the kernel takes: 1 <= n <= 512 states, at most ``MAX_FRAMES``
-    frames, float32 scores of either sign that are finite or -inf (NaN and
-    +inf are not scores).  Its results are the plain version's as long as
-    the running delta stays within +-2^27, which log-probabilities no
-    smaller than ``LOG_FLOOR`` do for every T it takes."""
+    What the kernel takes: any n >= 1 states and band half-width w >= 0
+    whose double-buffered delta fits the card's shared memory
+    (``forward_launch``; n up to about 10 400 at w = 501 and 11 300 at
+    w = 51 on an H100, every pitch grid of ``PyinConfig.resolution`` down
+    to 0.02 semitone), at most
+    ``MAX_FRAMES`` frames, float32 scores of either sign that are finite or
+    -inf (NaN and +inf are not scores).  Its results are the plain
+    version's as long as the running delta stays within +-2^27, which
+    log-probabilities no smaller than ``LOG_FLOOR`` do for every T it
+    takes."""
     if log_obs_v.device.type == "cpu":
         return viterbi_fwd_plain(log_obs_v, log_obs_u,
                                  dense_from_band(band, n, w),
@@ -375,13 +456,16 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
     B, T, _ = log_obs_v.shape
     if T < 1 or B < 1:
         raise ValueError(f"empty decode: B={B}, T={T}")
-    if not 1 <= n <= 512:
-        raise ValueError(f"the CUDA decode takes 1..512 states, got n={n}")
-    if w < 0:
-        raise ValueError(f"negative band half-width {w}")
     if T > MAX_FRAMES:
-        raise ValueError(f"the CUDA decode takes at most {MAX_FRAMES} frames, "
-                         f"got T={T}")
+        raise ValueError(
+            f"the CUDA decode takes at most {MAX_FRAMES} frames (about 3.4 h "
+            f"at 44 100 Hz, hop 512), got T={T}: past that the out-of-band "
+            "rule is no longer exact; decode long tracks in slabs "
+            "(AegisEngine turbo_mode=\"stream\")")
+    max_smem = max_shared_memory(dev)
+    launch = pick_forward_variant(
+        B, torch.cuda.get_device_properties(dev).multi_processor_count, n, w,
+        max_smem)
     _check("log_obs_v", log_obs_v, torch.float32, (B, T, n), dev)
     _check("log_obs_u", log_obs_u, torch.float32, (B, T), dev)
     _check("band", band, torch.float32, (n, 2 * w + 1), dev)
@@ -390,10 +474,8 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
                                ).to(dev)
     _check("tab", tab, torch.float32, (n if n < 2 * w + 1 else w + 1, w + 1),
            dev)
-    props = torch.cuda.get_device_properties(dev)
-    tile, cluster = pick_forward_variant(B, props.multi_processor_count)
     out = _launch_fwd(log_obs_v, log_obs_u, tab, n, w, log_stay, log_switch,
-                      tile, cluster, max_shared_memory(dev))
+                      launch.tile, launch.cluster, max_smem)
     _count("viterbi_fwd", (B, T, n, w))
     return out
 

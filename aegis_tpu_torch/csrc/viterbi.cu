@@ -57,6 +57,24 @@
 //     step t, a whole step ahead of their use; backpointer stores are
 //     fire-and-forget; delta is double-buffered, so one barrier a step
 //     suffices.
+//   * Large pitch grids (viterbi_fwd_wide_kernel).  viterbi_fwd_kernel gives
+//     each thread one tile, so a CTA's tiles must fit its 512 threads, and
+//     the block maximum takes one warp's lanes, so the cluster may hold 32
+//     warps: n up to 512 in every variant.  Past that (n = 900 at 0.05
+//     semitone a bin, 2250 at 0.02) the wide kernel deals the CTA's tiles
+//     to its threads in passes, tile p * (threads / S) + thread / S in pass
+//     p, so a thread owns one tile a pass and `passes` tiles a step.  Its
+//     own delta no longer fits registers: each owner writes its new delta
+//     straight into the other buffer (in every CTA) and folds it into a
+//     running (max, first index) that it publishes at the end of the step;
+//     the next step reduces those in two levels (each lane over every 32nd
+//     warp, then a butterfly that compares indices as well as values), so
+//     the cluster may hold any number of warps.  The pairs, the merge, the
+//     out-of-band rule and the stay / switch are those of the one-pass
+//     kernel, so its results are the same.  Shared memory bounds n: the
+//     double-buffered delta, the row offsets and the warp maxima must fit
+//     (n up to about 10 400 at w = 501, 11 300 at w = 51 on an H100); the
+//     expanded table goes to shared memory only where it fits beside them.
 //
 // The backtrace.  What bounds it: T dependent loads.  The frames are cut
 // into chunks of C; viterbi_back_maps_kernel walks every chunk down from
@@ -77,7 +95,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxStates = 512;   // the most pitch states a chain has
 constexpr int kMaxThreads = 512;  // the most threads a CTA is launched with
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -102,6 +119,17 @@ __device__ __forceinline__ void warp_first_max(float& v, int& i) {
   const unsigned hit = __ballot_sync(kFullMask, v == m);
   i = __shfl_sync(kFullMask, i, __ffs(hit) - 1);
   v = m;
+}
+
+// Warp-wide (max, first index) of values in any index order: a butterfly
+// that takes the better pair each round.  All lanes return the result.
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    const float v2 = __shfl_xor_sync(kFullMask, v, off);
+    const int i2 = __shfl_xor_sync(kFullMask, i, off);
+    take_better(v, i, v2, i2);
+  }
 }
 
 // One round of the transposing merge over lanes s and s ^ M: the lane whose
@@ -476,6 +504,248 @@ viterbi_fwd_kernel(const float* __restrict__ log_obs_v,  // (B, T, n)
   if (csize > 1) cluster.sync();
 }
 
+// The forward pass for grids that viterbi_fwd_kernel cannot take in one
+// launch (the header's "Large pitch grids"): the CTA's tiles in `passes`
+// passes of its threads, each owner's new delta written straight into the
+// next buffer, and a block maximum over any number of warps.  Template
+// arguments and the pairs of a tile are those of viterbi_fwd_kernel.  The
+// shared-memory set-up and each destination's step repeat that kernel's
+// lines on purpose: moving them into shared inline functions changed its
+// sm_90a machine code (eight instructions more, by cuobjdump -sass), and
+// the launches up to 512 states keep the code they had.
+template <int D, int S, bool kTabSmem>
+__global__ void __launch_bounds__(kMaxThreads)
+viterbi_fwd_wide_kernel(const float* __restrict__ log_obs_v,  // (B, T, n)
+                        const float* __restrict__ log_obs_u,  // (B, T)
+                        const float* __restrict__ tab,        // (n_cls, w+1)
+                        int* __restrict__ psi_v,              // (B, T, n)
+                        int* __restrict__ psi_u,              // (B, T, n)
+                        float* __restrict__ delta_last,       // (B, 2, n)
+                        int T, int n, int w, int n_cls, int per_source,
+                        int csize, int tiles_per_cta, int passes,
+                        float log_init, float log_floor, float log_stay,
+                        float log_switch) {
+  static_assert(S <= 2 * D, "at most two lanes share a destination");
+  static_assert(D % 4 == 0, "a tile starts on a group of four sources");
+  constexpr int R = D >= S ? D / S : 1;      // destinations a lane ends with
+  constexpr int kShare = S > D ? S / D : 1;  // lanes that end on the same
+  extern __shared__ __align__(16) float smem[];
+  const int rs = row_stride(w, D, S);
+  const int np = delta_stride(n, w, D, S);
+  const int tab_floats = kTabSmem ? (n_cls * rs + 3) / 4 * 4 : 0;
+  const int n_warps = csize * (blockDim.x >> 5);  // across the cluster
+  // [expanded table] [delta: buffer, chain, padded state] [row offsets]
+  // [warp maxima: buffer, chain, warp] [their indices]
+  float* etab = smem;
+  float* dbuf = smem + tab_floats;
+  int* row_off = reinterpret_cast<int*>(dbuf + 2 * 2 * np);  // [w + state]
+  float* wred_val = reinterpret_cast<float*>(row_off + np);
+  int* wred_idx = reinterpret_cast<int*>(wred_val + 2 * 2 * n_warps);
+  const float* table = kTabSmem ? etab : tab;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = csize > 1 ? (int)cluster.block_rank() : 0;
+  const int warp = rank * (blockDim.x >> 5) + (tid >> 5);  // across the CTAs
+  const int s = tid % S;
+  const int tiles_per_pass = blockDim.x / S;
+  const size_t seq = blockIdx.x / csize;
+  const float* obs_v = log_obs_v + seq * T * n;
+  const float* obs_u = log_obs_u + seq * T;
+  int* pv_out = psi_v + seq * T * n;
+  int* pu_out = psi_u + seq * T * n;
+  float* d_out = delta_last + seq * 2 * n;
+
+  if (kTabSmem) {
+    for (int k = tid; k < n_cls * rs; k += blockDim.x) {
+      const int x = k % rs - (w + D - 1);
+      const int ax = x < 0 ? -x : x;
+      etab[k] = ax <= w ? tab[(k / rs) * (w + 1) + ax] : log_floor;
+    }
+  }
+  for (int k = tid; k < np; k += blockDim.x) {
+    int i = k - w;
+    i = i < 0 ? 0 : (i > n - 1 ? n - 1 : i);
+    int cls = i < n - 1 - i ? i : n - 1 - i;
+    cls = cls < w ? cls : w;
+    if (per_source) cls = i;
+    row_off[k] = cls * (kTabSmem ? rs : w + 1);
+    if (k < w || k >= w + n) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) dbuf[b * np + k] = -INFINITY;
+    }
+  }
+
+  // the first tile of pass p this thread's lanes work on, and whether the
+  // CTA owns it; the destinations this lane owns in it after the merge
+  auto tile_of = [&](int p) { return p * tiles_per_pass + tid / S; };
+  auto owned = [&](int p) {
+    const int lt = tile_of(p);
+    const int j0 = (rank * tiles_per_cta + lt) * D;
+    return lt < tiles_per_cta && j0 < n && s % kShare == 0
+               ? j0 + (s / kShare) * R
+               : n;
+  };
+  // delta slot w + j of buffer b, chain c, in every CTA of the cluster
+  auto publish = [&](int b, int c, int j, float v) {
+    float* at = dbuf + (b * 2 + c) * np + w + j;
+    if (csize > 1) {
+      for (int q = 0; q < csize; ++q) *cluster.map_shared_rank(at, q) = v;
+    } else {
+      *at = v;
+    }
+  };
+  // this warp's (max, first index) of delta + log_floor over the frame
+  // just computed, for the step that reads buffer b
+  auto publish_max = [&](int b, float hv, int hvi, float hu, int hui) {
+    warp_best(hv, hvi);
+    warp_best(hu, hui);
+    if (lane == 0) {
+      for (int q = 0; q < csize; ++q) {
+        float* val = csize > 1 ? cluster.map_shared_rank(wred_val, q) : wred_val;
+        int* idx = csize > 1 ? cluster.map_shared_rank(wred_idx, q) : wred_idx;
+        val[(b * 2 + 0) * n_warps + warp] = hv;
+        idx[(b * 2 + 0) * n_warps + warp] = hvi;
+        val[(b * 2 + 1) * n_warps + warp] = hu;
+        idx[(b * 2 + 1) * n_warps + warp] = hui;
+      }
+    }
+  };
+
+  // no CTA writes another's shared memory before that CTA has started
+  if (csize > 1) cluster.sync();
+  {  // frame 0 has no predecessor
+    float hv = -INFINITY, hu = -INFINITY;
+    int hvi = INT_MAX, hui = INT_MAX;
+    for (int p = 0; p < passes; ++p) {
+      const int j_own = owned(p);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = j_own + r;
+        if (j < n) {
+          const float dv = log_init + obs_v[j];
+          const float du = log_init + obs_u[0];
+          publish(0, 0, j, dv);
+          publish(0, 1, j, du);
+          pv_out[j] = 0;
+          pu_out[j] = 0;
+          take_better(hv, hvi, dv + log_floor, j);
+          take_better(hu, hui, du + log_floor, j);
+          if (T == 1) {
+            d_out[j] = dv;
+            d_out[n + j] = du;
+          }
+        }
+      }
+    }
+    publish_max(0, hv, hvi, hu, hui);
+  }
+
+  for (int t = 1; t < T; ++t) {
+    const int cur = (t - 1) & 1;
+    const int nxt = t & 1;
+    // delta of frame t-1 and its warp maxima are visible (in every CTA)
+    if (csize > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+    const float* dvp = dbuf + (cur * 2 + 0) * np;
+    const float* dup = dbuf + (cur * 2 + 1) * np;
+    // the out-of-band candidate: (max, first index) of delta + log_floor,
+    // each lane over every 32nd warp, then across the lanes
+    float gv = -INFINITY, gu = -INFINITY;
+    int gvi = INT_MAX, gui = INT_MAX;
+    for (int q = lane; q < n_warps; q += 32) {
+      take_better(gv, gvi, wred_val[(cur * 2 + 0) * n_warps + q],
+                  wred_idx[(cur * 2 + 0) * n_warps + q]);
+      take_better(gu, gui, wred_val[(cur * 2 + 1) * n_warps + q],
+                  wred_idx[(cur * 2 + 1) * n_warps + q]);
+    }
+    warp_best(gv, gvi);
+    warp_best(gu, gui);
+    const float ou = obs_u[t];
+
+    float hv = -INFINITY, hu = -INFINITY;
+    int hvi = INT_MAX, hui = INT_MAX;
+    for (int p = 0; p < passes; ++p) {
+      const int lt = tile_of(p);
+      const int j0 = (rank * tiles_per_cta + lt) * D;
+      const bool tile_live = lt < tiles_per_cta && j0 < n;
+      const int j_own = owned(p);
+      float ov[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        ov[r] = j_own + r < n ? obs_v[(size_t)t * n + j_own + r] : 0.0f;
+
+      float mv[D], mu[D];
+      int bv[D], bu[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) {
+        mv[e] = mu[e] = -INFINITY;
+        bv[e] = bu[e] = INT_MAX;
+      }
+      scan_tile<D, S, kTabSmem>(mv, bv, mu, bu, dvp, dup, row_off, table,
+                                j0 - w,
+                                tile_live ? groups_per_lane(w, D, S) : 0, s,
+                                j0, w, log_floor);
+      Merge<D, S / 2>::run(mv, bv, mu, bu, s);
+
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = j_own + r;
+        if (j < n) {
+          float best_v = mv[r], best_u = mu[r];
+          int from_v = bv[r], from_u = bu[r];
+          const int first_in = j > w ? j - w : 0;
+          const int gv0 = from_v == INT_MAX ? first_in : from_v;
+          const int gu0 = from_u == INT_MAX ? first_in : from_u;
+          from_v = gv0;
+          from_u = gu0;
+#pragma unroll
+          for (int k = 3; k >= 0; --k) {
+            if (dvp[w + gv0 + k] +
+                    pair_score<D, kTabSmem>(table, row_off[w + gv0 + k],
+                                            gv0 + k, j, w, log_floor) ==
+                best_v)
+              from_v = gv0 + k;
+            if (dup[w + gu0 + k] +
+                    pair_score<D, kTabSmem>(table, row_off[w + gu0 + k],
+                                            gu0 + k, j, w, log_floor) ==
+                best_u)
+              from_u = gu0 + k;
+          }
+          if (gvi < j - w || gvi > j + w) take_better(best_v, from_v, gv, gvi);
+          if (gui < j - w || gui > j + w) take_better(best_u, from_u, gu, gui);
+          const size_t at = (size_t)t * n + j;
+          const float stay = best_v + log_stay;
+          const float sw = best_u + log_switch;
+          const bool take_stay = stay >= sw;
+          const float dv = (take_stay ? stay : sw) + ov[r];
+          pv_out[at] = take_stay ? from_v : from_u + n;
+          const float sw2 = best_v + log_switch;
+          const float st2 = best_u + log_stay;
+          const bool take_sw = sw2 >= st2;
+          const float du = (take_sw ? sw2 : st2) + ou;
+          pu_out[at] = take_sw ? from_v : from_u + n;
+          publish(nxt, 0, j, dv);
+          publish(nxt, 1, j, du);
+          take_better(hv, hvi, dv + log_floor, j);
+          take_better(hu, hui, du + log_floor, j);
+          if (t == T - 1) {
+            d_out[j] = dv;
+            d_out[n + j] = du;
+          }
+        }
+      }
+    }
+    publish_max(nxt, hv, hvi, hu, hui);
+  }
+  // no CTA leaves while another may still write its shared memory
+  if (csize > 1) cluster.sync();
+}
+
 // One step down the backpointers from state s at frame t.
 __device__ __forceinline__ int step_down(const int* __restrict__ pv,
                                          const int* __restrict__ pu, int n,
@@ -565,23 +835,25 @@ cudaError_t launch_fwd(const float* obs_v, const float* obs_u,
                        int max_smem, int csize, cudaStream_t stream) {
   const int groups = (n + D - 1) / D;
   const int tiles_per_cta = (groups + csize - 1) / csize;
-  const int threads = (tiles_per_cta * S + 31) / 32 * 32;
-  if (threads > kMaxThreads || csize * (threads / 32) > 32)
-    return cudaErrorInvalidValue;
+  // the lanes the CTA's tiles take; one thread each in viterbi_fwd_kernel
+  // while they fit 512 threads and the cluster 32 warps, else the wide
+  // kernel's passes (core/pyin_cuda.py::forward_launch mirrors this)
+  const int lanes = tiles_per_cta * S;
+  int threads = (lanes + 31) / 32 * 32;
+  const bool wide = threads > kMaxThreads || csize * (threads / 32) > 32;
+  int passes = 1;
+  if (wide) {
+    passes = (lanes + kMaxThreads - 1) / kMaxThreads;
+    threads = ((lanes + passes - 1) / passes + 31) / 32 * 32;
+  }
+  const int warp_slots = wide ? csize * (threads / 32) : 32;
   const int np = delta_stride(n, w, D, S);
-  const size_t fixed = (2 * 2 * np + 2 * 2 * 32) * sizeof(float) +
-                       (np + 2 * 2 * 32) * sizeof(int);
+  const size_t fixed = (2 * 2 * np + 2 * 2 * warp_slots) * sizeof(float) +
+                       (np + 2 * 2 * warp_slots) * sizeof(int);
   const size_t table =
       ((size_t)n_cls * row_stride(w, D, S) + 3) / 4 * 4 * sizeof(float);
   const bool in_smem = fixed + table <= (size_t)max_smem;
   const size_t bytes = fixed + (in_smem ? table : 0);
-  auto kernel = in_smem ? viterbi_fwd_kernel<D, S, true>
-                        : viterbi_fwd_kernel<D, S, false>;
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * csize);
   config.blockDim = dim3(threads);
@@ -594,6 +866,26 @@ cudaError_t launch_fwd(const float* obs_v, const float* obs_u,
   cluster_dim.val.clusterDim.z = 1;
   config.attrs = &cluster_dim;
   config.numAttrs = csize > 1 ? 1 : 0;
+  if (wide) {
+    auto kernel = in_smem ? viterbi_fwd_wide_kernel<D, S, true>
+                          : viterbi_fwd_wide_kernel<D, S, false>;
+    if (bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaLaunchKernelEx(&config, kernel, obs_v, obs_u, tab, psi_v,
+                              psi_u, delta_last, T, n, w, n_cls, per_source,
+                              csize, tiles_per_cta, passes, log_init,
+                              log_floor, log_stay, log_switch);
+  }
+  auto kernel = in_smem ? viterbi_fwd_kernel<D, S, true>
+                        : viterbi_fwd_kernel<D, S, false>;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
   return cudaLaunchKernelEx(&config, kernel, obs_v, obs_u, tab, psi_v, psi_u,
                             delta_last, T, n, w, n_cls, per_source, csize,
                             tiles_per_cta, log_init, log_floor, log_stay,
@@ -609,7 +901,9 @@ cudaError_t launch_fwd(const float* obs_v, const float* obs_u,
 // S = 16: two lanes a destination, for clusters, whose CTAs have few
 // warps).  max_smem: the bytes of shared memory a block may take (the
 // expanded table goes to shared memory only if it fits).  cluster: the CTAs
-// (1, 2, 4 or 8, one thread-block cluster) that share a sequence.
+// (1, 2, 4 or 8, one thread-block cluster) that share a sequence.  Any
+// n whose delta buffers fit max_smem is taken: viterbi_fwd_kernel where a
+// CTA's tiles fit its threads, viterbi_fwd_wide_kernel past that.
 extern "C" int aegis_viterbi_fwd(const void* log_obs_v, const void* log_obs_u,
                                  const void* tab, void* psi_v, void* psi_u,
                                  void* delta_last, int B, int T, int n, int w,
@@ -617,7 +911,7 @@ extern "C" int aegis_viterbi_fwd(const void* log_obs_v, const void* log_obs_u,
                                  float log_floor, float log_stay,
                                  float log_switch, int tile, int max_smem,
                                  int cluster, void* stream) {
-  if (B < 1 || T < 1 || T > (1 << 20) || n < 1 || n > kMaxStates || w < 0 ||
+  if (B < 1 || T < 1 || T > (1 << 20) || n < 1 || w < 0 ||
       n_cls < 1 || cluster < 1 || cluster > 8)
     return static_cast<int>(cudaErrorInvalidValue);
 #define AEGIS_FWD(D, S)                                                      \

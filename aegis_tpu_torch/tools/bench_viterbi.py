@@ -8,7 +8,8 @@ For each shape of the main path (one 60 s track fused at 22 050 and 44 100
 Hz, the auto router's v1 half at 44 100 Hz on hop 1024, its tiles, the
 stream's slab of 16 tiles, the live transcriber's one tile a launch: B = 1,
 T = 40 and 128) and a few edge shapes (T = 1,
-T = 2, n < 2w + 1, a table too large for shared memory) it runs every
+T = 2, n < 2w + 1, a table too large for shared memory, the finer pitch
+grids n = 900, 1125 and 2250) it runs every
 variant of the forward kernel (both destination tiles, one to eight CTAs a
 sequence, the score table in shared or global memory) and the backtrace against the plain PyTorch versions on
 synthetic observations: backpointers, final delta and states must be
@@ -77,6 +78,11 @@ SHAPES = {
     "tiles60_44100": (6, 1152, 450, 51, False),
     "stream_slab": (16, 1152, 450, 101, False),
     "batch_40": (40, 300, 450, 101, False),   # 4 B CTAs outnumber the SMs
+    # finer pitch grids (PyinConfig.resolution 0.05, 0.04, 0.02): the wide
+    # kernel, its table in shared memory (n = 900, 1125) or global memory
+    "grid_n900_w101": (1, 60, 900, 101, True),
+    "grid_n1125_w126_b6": (6, 50, 1125, 126, True),
+    "grid_n2250_w501_b16": (16, 30, 2250, 501, True),
 }
 LIVE = ("live_t40_w101", "live_t128_w101", "live_t40_w51", "live_t128_w51")
 TIMED = ("fused60_22050", "fused60_44100", "auto60_44100", "tiles60_22050",
@@ -178,11 +184,12 @@ class Previous:
         self.lib = pyin_cuda._bind(pyin_cuda.build(source))
 
     def fwd(self, lo_v, lo_u, band, tab, n, w):
-        tile, cluster = pyin_cuda.pick_forward_variant(
+        launch = pyin_cuda.pick_forward_variant(
             lo_v.shape[0], torch.cuda.get_device_properties(
-                lo_v.device).multi_processor_count)
-        return forward_variant(lo_v, lo_u, tab, n, w, tile, cluster,
-                               lib=self.lib)
+                lo_v.device).multi_processor_count, n, w,
+            pyin_cuda.max_shared_memory(lo_v.device))
+        return forward_variant(lo_v, lo_u, tab, n, w, launch.tile,
+                               launch.cluster, lib=self.lib)
 
     def back(self, d_last, psi_v, psi_u):
         B, T, n = psi_v.shape

@@ -47,6 +47,15 @@ def _pow2(n: int, floor: int = 2048) -> int:
     return b
 
 
+def optimize_single_note(y, event, sr, hop_length, mode: str = "precise",
+                         device="cuda") -> Dict:
+    """The optimal ADSR params of one event: ``optimize_all_notes`` on
+    ``[event]``, swept on ``device``."""
+    res = optimize_all_notes(y, [event], sr, hop_length, mode=mode,
+                             device=device)
+    return res[0]
+
+
 def optimize_all_notes(
     y: np.ndarray,
     events: List[Dict],

@@ -9,8 +9,9 @@ financial (v2) engine, the tiled, streamed and folder-batch modes, the
 live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
 the self-verification loops, the REST server, the PitchNet trainer, the
-validation tools, the Streamlit apps and the multi-device paths, in
-twenty-nine phases; each raises on failure:
+validation tools, the Streamlit apps, the multi-device paths, the finer
+pitch grids and the warm-up command, in thirty-one phases; each raises on
+failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
@@ -257,6 +258,31 @@ twenty-nine phases; each raises on failure:
                gloo.  Prints the backend, world, mesh, staging, each
                rank's device and the wall ms a call (median of 5, CUDA
                events).
+ 30. grids   — the finer pitch grids of PyinConfig.resolution (0.05 and
+               0.04 @ 44 100 Hz, 0.05 @ 22 050 Hz, 0.02 at both rates:
+               n = 900 / 1125 / 900 / 2250 / 2250, w = 101 / 126 / 201 /
+               251 / 501, hop 512): both kernels against their plain
+               versions on the bench track's observations (a 10 s cut past
+               2000 states) at B = 1, 6 and 16 (consecutive windows), with
+               the variant the wrapper picks (the wide kernel where a CTA's
+               tiles outnumber its threads) and one CTA a sequence, each
+               shape timed beside its bound and serial floor; then the v1
+               engine fused on the 60 s track and a live v1 session on its
+               first GRID_LIVE_S (tile 24 / halo 8, 0.5 s chunks) at
+               resolution 0.05 @ 44 100 Hz (n = 900, w = 101) on the card:
+               one launch of each kernel a call or tile at n = 900, note
+               events equal to the same calls on the CPU, truth F1 >= 0.99
+               or within 0.01 of the JAX package's (JAX_CPU_GRID_TRUTH_F1),
+               both kernels held to their plain versions on the live tiles.
+ 31. warmup  — in a temporary copy of aegis_tpu_torch/ (a fresh build/)
+               with HOME in a temporary directory (a fresh native-library
+               cache): `python -m aegis_tpu_torch transcribe` of the 60 s
+               WAV @ 22 050 Hz cold; both builds deleted; `warmup --seconds
+               60 --sr 22050 --pipelines v1,financial,poly,live-v1`, which
+               must build both again; the same transcribe, which must
+               build nothing (every library file keeps its mtime) and
+               write the cold run's MIDI bytes.  Prints each run's seconds
+               and each warm line.
 
 Prints one JSON object per result and each phase's seconds, then the
 kernels line (each kernel's launches on the main paths, its error, and at
@@ -408,17 +434,19 @@ def phase_build() -> None:
     emit({"phase": "build", "seconds": seconds, "library": so_path.name})
 
 
-def real_obs(y: np.ndarray, sr: int, dev: torch.device, hop: int = HOP):
+def real_obs(y: np.ndarray, sr: int, dev: torch.device, hop: int = HOP,
+             cfg: PyinConfig = CFG):
     """The decode's observations for a track, as the main path computes
     them on the card (bucket padding, int8 transport, pYIN stages); ``hop``
-    1024 at 44 100 Hz is the auto router's v1 half."""
+    1024 at 44 100 Hz is the auto router's v1 half; ``cfg`` a finer pitch
+    grid (phase 30)."""
     tables = tables_from_numpy(AudioConfig(sample_rate=sr, hop_length=hop),
-                               CFG, dev)
+                               cfg, dev)
     y8, s8 = quantize_pcm8(pad_to_bucket(np.asarray(y, np.float32)))
     yd = dequant_transport(torch.from_numpy(y8).to(dev),
                            torch.from_numpy(s8).to(dev))
-    frames = tpyin.extract_pyin_frames(yd, hop, CFG)
-    obs, vprob = tpyin.frame_observations(frames, sr, CFG, tables)
+    frames = tpyin.extract_pyin_frames(yd, hop, cfg)
+    obs, vprob = tpyin.frame_observations(frames, sr, cfg, tables)
     return obs, vprob, tables
 
 
@@ -561,10 +589,12 @@ def time_kernels(obs, vprob, tables, with_decode: bool) -> dict:
     return row
 
 
-def time_kernel_inputs(lo_v, lo_u, band, tab, w: int) -> dict:
-    """Warm medians of each kernel and its plain version on the decode's
-    inputs (B, T, n), with the bounds of that shape."""
-    n = CFG.n_pitch_bins
+def time_kernel_inputs(lo_v, lo_u, band, tab, w: int,
+                       plain_reps: int = 5) -> dict:
+    """Warm medians of each kernel (of 5) and its plain version (of
+    ``plain_reps``) on the decode's inputs (B, T, n), with the bounds of
+    that shape."""
+    n = band.shape[0]
     B, T = lo_v.shape[:2]
     dense = pyin_cuda.dense_from_band(band, n, w)
     psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, w,
@@ -573,11 +603,11 @@ def time_kernel_inputs(lo_v, lo_u, band, tab, w: int) -> dict:
         "viterbi_fwd": cuda_ms(lambda: pyin_cuda.viterbi_fwd(
             lo_v, lo_u, band, n, w, LOG_STAY, LOG_SWITCH, tab)),
         "viterbi_fwd_plain": cuda_ms(lambda: pyin_cuda.viterbi_fwd_plain(
-            lo_v, lo_u, dense, LOG_STAY, LOG_SWITCH)),
+            lo_v, lo_u, dense, LOG_STAY, LOG_SWITCH), plain_reps),
         "viterbi_back": cuda_ms(lambda: pyin_cuda.viterbi_back(
             d_last, psi_v, psi_u)),
         "viterbi_back_plain": cuda_ms(lambda: pyin_cuda.viterbi_back_plain(
-            d_last, psi_v, psi_u)),
+            d_last, psi_v, psi_u), plain_reps),
     }
     row["shape"] = {"B": B, "T": T, "n": n, "w": w}
     row["bounds"] = {k: kernel_bounds(k, B, T, n, w)
@@ -732,19 +762,20 @@ def phase_financial(dev, tracks, total: dict) -> None:
                 raise AssertionError(f"{name}: truth F1 {row['truth_f1']}")
 
 
-def tile_obs(y: np.ndarray, sr: int, dev, turbo: TurboConfig):
+def tile_obs(y: np.ndarray, sr: int, dev, turbo: TurboConfig,
+             cfg: PyinConfig = CFG):
     """The decode's observations of every tile as the tiled program computes
     them on the card: int16 transport, haloed slabs, pYIN stages."""
     audio = AudioConfig(sample_rate=sr)
-    tables = tables_from_numpy(audio, CFG, dev)
+    tables = tables_from_numpy(audio, cfg, dev)
     n_tiles = n_tiles_of(y, sr, turbo)
     y16, scale = tturbo._tiled_inputs(
         np.asarray(y, np.float32)[None],
         n_tiles * turbo.tile_frames * HOP, "int16", dev)
-    slabs = tturbo.tile_slabs(y16, scale, audio, CFG, turbo, n_tiles)
+    slabs = tturbo.tile_slabs(y16, scale, audio, cfg, turbo, n_tiles)
     frames = tturbo._frame_slab(slabs, turbo.tile_frames + 2 * turbo.halo_frames,
-                                HOP, CFG.frame_length, 0)
-    obs, vprob = tpyin.frame_observations(frames, sr, CFG, tables)
+                                HOP, cfg.frame_length, 0)
+    obs, vprob = tpyin.frame_observations(frames, sr, cfg, tables)
     return obs, vprob, tables
 
 
@@ -1003,15 +1034,17 @@ def phase_live_kernels(dev, tracks, errs) -> dict:
     return shapes
 
 
-def live_transcriber(dev, sr: int, tile: int, halo: int, financial: bool):
+def live_transcriber(dev, sr: int, tile: int, halo: int, financial: bool,
+                     pyin_cfg: PyinConfig = CFG):
     kw = {"financial": True} if financial else {"confidence_threshold": 0.5}
     return StreamingTranscriber(audio=AudioConfig(sample_rate=sr),
-                                tile_frames=tile, halo_frames=halo,
-                                device=dev, **kw)
+                                pyin_cfg=pyin_cfg, tile_frames=tile,
+                                halo_frames=halo, device=dev, **kw)
 
 
 def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
-                 chunk_s: float = 0.5, poll_s: float = 2.0, rt=None):
+                 chunk_s: float = 0.5, poll_s: float = 2.0, rt=None,
+                 pyin_cfg: PyinConfig = CFG):
     """One live session on the card: ``y`` fed in chunks, polled every
     ``poll_s`` of audio (and after every chunk until the first note shows),
     finalized.  Returns (final events, stats); raises when a kernel was not
@@ -1021,7 +1054,7 @@ def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
     poly = rt is not None
     hop = rt.hop if poly else HOP
     if rt is None:
-        rt = live_transcriber(dev, sr, tile, halo, financial)
+        rt = live_transcriber(dev, sr, tile, halo, financial, pyin_cfg)
     chunk = int(chunk_s * sr)
     n_polls = int(len(y) / sr / poll_s)
     sampled = {0, n_polls // 2, n_polls - 1}
@@ -1238,7 +1271,9 @@ def phase_times_live(dev, tracks, live_shapes, all_stats) -> dict:
         lo_v, lo_u = tpyin.decode_inputs(obs, vprob)
         n, w = CFG.n_pitch_bins, tables.half_width
         # the cluster the wrapper picks beside one CTA a sequence, in turns
-        picked = pyin_cuda.pick_forward_variant(1, N_SMS)
+        launch = pyin_cuda.pick_forward_variant(
+            1, N_SMS, n, w, pyin_cuda.max_shared_memory(dev))
+        picked = (launch.tile, launch.cluster)
         turns = [cuda_ms(lambda v=v: forward_variant(lo_v, lo_u,
                                                      tables.band_tab, n, w, *v))
                  for v in (picked, (88, 1), (88, 1), picked)]
@@ -3997,6 +4032,245 @@ def phase_mesh(dev, chord60, y10, errs: dict, total: dict,
             "stream": stream_counts}
 
 
+# --------------------------------------------------------------------------
+# Finer pitch grids (phase 30) and the warm-up command (phase 31)
+# --------------------------------------------------------------------------
+
+# (PyinConfig.resolution, rate) at hop 512 and the (n, w) each gives:
+# (900, 101), (1125, 126), (900, 201), (2250, 251), (2250, 501)
+GRID_CASES = ((0.05, 44100), (0.04, 44100), (0.05, 22050), (0.02, 44100),
+              (0.02, 22050))
+GRID_BATCHES = (1, 6, 16)
+# grids over this many states decode a GRID_CUT_S cut of the track: the
+# plain dense version would take over ~10 s on the 60 s track
+GRID_CUT_STATES = 2000
+GRID_CUT_S = 10.0
+# the live session of phase 30 runs on the track's first GRID_LIVE_S
+GRID_LIVE_S = 20.0
+# Truth F1 of the JAX package on the CPU (JAX_PLATFORMS=cpu) at
+# PyinConfig(resolution=0.05), 44 100 Hz, hop 512: the v1 engine fused on
+# the 60 s bench track (audio_to_midi + extract_events at confidence 0.3;
+# 150 events, 150 truth notes) and a StreamingTranscriber (tile 24, halo
+# 8, confidence 0.5) fed the track's first GRID_LIVE_S in 0.5 s chunks,
+# then finalized, against the truth notes that start in the cut.
+JAX_CPU_GRID_TRUTH_F1 = {"fused": 1.0,   # 150 events, 150 truth notes
+                         "live": 1.0}    # 49 events, 49 truth notes
+GRID_TRUTH_SLACK = 0.01
+
+
+def grid_windows(lo_v, lo_u, B: int):
+    """B consecutive windows of one sequence's decode inputs (1, T, n) ->
+    (B, T // B, n) and (B, T // B)."""
+    T = lo_v.shape[1] // B
+    return (lo_v[0, :B * T].reshape(B, T, -1).contiguous(),
+            lo_u[0, :B * T].reshape(B, T).contiguous())
+
+
+def truth_gate(what: str, f1: float, jax_f1: float) -> None:
+    if f1 < 0.99 and f1 < jax_f1 - GRID_TRUTH_SLACK:
+        raise AssertionError(f"{what}: truth F1 {f1} < 0.99 and more than "
+                             f"{GRID_TRUTH_SLACK} under the JAX engine's "
+                             f"{jax_f1}")
+
+
+def phase_grids(dev, tracks, errs: dict, total: dict, per_call: dict) -> list:
+    """Both kernels at the finer pitch grids, then the v1 engine fused and a
+    live session at PyinConfig(resolution=0.05), 44 100 Hz (n = 900,
+    w = 101) on the card against the same calls on the CPU.  Returns the
+    (path, launches a call, timed row) entries of the kernels line."""
+    smem = pyin_cuda.max_shared_memory(dev)
+    rows, timed = [], {}
+    for res, sr in GRID_CASES:
+        cfg = PyinConfig(resolution=res)
+        n = cfg.n_pitch_bins
+        y = tracks[sr][0]
+        if n > GRID_CUT_STATES:
+            y = y[:int(GRID_CUT_S * sr)]
+        obs, vprob, tables = real_obs(y, sr, dev, cfg=cfg)
+        w = tables.half_width
+        lo_v, lo_u = tpyin.decode_inputs(obs[None], vprob[None])
+        for B in GRID_BATCHES:
+            b_v, b_u = grid_windows(lo_v, lo_u, B) if B > 1 else (lo_v, lo_u)
+            launch = pyin_cuda.pick_forward_variant(B, N_SMS, n, w, smem)
+            name = f"grid_res{res}_{sr}_B{B}"
+            compare_kernels(name, b_v, b_u, tables.band, tables.band_tab, w,
+                            1.0, errs)
+            row = time_kernel_inputs(b_v, b_u, tables.band, tables.band_tab,
+                                     w, plain_reps=1)
+            timed[(B, b_v.shape[1], n, w)] = row
+            emit({"phase": "times", "what": "viterbi_grid", "case": name,
+                  "resolution": res, "sr": sr, **row["shape"],
+                  "variant": [launch.tile, launch.cluster],
+                  "wide": launch.wide,
+                  "threads": launch.threads, "passes": launch.passes,
+                  "table_in_smem": launch.table_in_smem, "median_ms": row,
+                  "card": CARD["nvidia_smi"]})
+            rows.append((f"finer grid: resolution {res} @ {sr} Hz "
+                         f"(n = {n}, w = {w}), B = {B}; both kernels held "
+                         "to their plain versions (no main-path launch)",
+                         {k: 0 for k in pyin_cuda.LAUNCHES}, row))
+
+    # the main path at n = 900: the fused engine and a live session
+    sr, cfg = 44100, PyinConfig(resolution=0.05)
+    y, truth = tracks[sr]
+    eng = AegisEngine(sample_rate=sr, device=dev)
+    eng.pyin_cfg = cfg
+    raw, counts, batch = run_counted(lambda: eng.audio_to_midi(y))
+    shapes = {k: dict(v) for k, v in pyin_cuda.SHAPES.items()}
+    expect_launches("grid fused", counts, batch, 1, 1)
+    per_call["grid_fused_44100"] = counts
+    add_counts(total, counts)
+    events = eng.extract_events(raw, None, confidence_threshold=0.3)
+    cpu = AegisEngine(sample_rate=sr, device="cpu")
+    cpu.pyin_cfg = cfg
+    ev_cpu = cpu.extract_events(cpu.audio_to_midi(y), None,
+                                confidence_threshold=0.3)
+    fused_row = {"phase": "grid_fused", "sr": sr, "resolution": 0.05,
+                 "shapes": {k: [list(s) for s in v] for k, v in shapes.items()},
+                 "events": len(events), "cpu_events": len(ev_cpu),
+                 "events_equal_cpu": note_tuples(events) == note_tuples(ev_cpu),
+                 "f1_vs_cpu": f1_of(secs(ev_cpu, sr), secs(events, sr)),
+                 "truth_f1": f1_of(truth, secs(events, sr)),
+                 "jax_cpu_truth_f1": JAX_CPU_GRID_TRUTH_F1["fused"]}
+    emit(fused_row)
+    if not fused_row["events_equal_cpu"]:
+        raise AssertionError("grid fused: events differ from the CPU's")
+    truth_gate("grid fused", fused_row["truth_f1"],
+               JAX_CPU_GRID_TRUTH_F1["fused"])
+    (fwd_shape,) = shapes["viterbi_fwd"]
+    if fwd_shape not in timed:
+        raise AssertionError(f"grid fused: launched at {fwd_shape}, not at "
+                             "a checked n = 900 shape")
+    rows.append(("audio_to_midi fused at PyinConfig(resolution=0.05), 60 s "
+                 "at 44 100 Hz", counts, timed[fwd_shape]))
+
+    y20 = y[:int(GRID_LIVE_S * sr)]
+    truth20 = [dict(e, end=min(e["end"], GRID_LIVE_S)) for e in truth
+               if e["start"] < GRID_LIVE_S]
+    final, stats = live_session(dev, y20, sr, 24, 8, False, pyin_cfg=cfg)
+    counts = dict(pyin_cuda.LAUNCHES)
+    add_counts(total, counts)
+    per_call["grid_live_44100"] = {k: 1 for k in counts}
+    live_shapes = {k: dict(v) for k, v in pyin_cuda.SHAPES.items()}
+    cpu_rt = live_transcriber("cpu", sr, 24, 8, False, cfg)
+    for i in range(0, len(y20), sr // 2):
+        cpu_rt.feed(y20[i:i + sr // 2])
+    final_cpu = cpu_rt.finalize()
+    live_row = {"phase": "grid_live", **stats, "resolution": 0.05,
+                "shapes": {k: [list(s) for s in v]
+                           for k, v in live_shapes.items()},
+                "events_equal_cpu": final == final_cpu,
+                "notes_equal_cpu": note_tuples(final) == note_tuples(final_cpu),
+                "f1_vs_cpu": f1_of(secs(final_cpu, sr), secs(final, sr)),
+                "truth_f1": f1_of(truth20, secs(final, sr)),
+                "jax_cpu_truth_f1": JAX_CPU_GRID_TRUTH_F1["live"]}
+    emit(live_row)
+    if not live_row["notes_equal_cpu"]:
+        raise AssertionError("grid live: events differ from the CPU's")
+    truth_gate("grid live", live_row["truth_f1"],
+               JAX_CPU_GRID_TRUTH_F1["live"])
+    (live_fwd,) = live_shapes["viterbi_fwd"]
+    if live_fwd[2:] != (900, 101):
+        raise AssertionError(f"grid live: launched at {live_fwd}")
+    # both kernels on the real observations of the first, a middle and the
+    # last tile, timed on the middle one
+    obs, vprob, tables = tile_obs(y20, sr, dev, TurboConfig(tile_frames=24,
+                                                            halo_frames=8),
+                                  cfg)
+    n_t = obs.shape[0]
+    for k in sorted({0, n_t // 2, n_t - 1}):
+        tile_v, tile_u = tpyin.decode_inputs(obs[k:k + 1], vprob[k:k + 1])
+        if (1, *tile_v.shape[1:2], 900, tables.half_width) != live_fwd:
+            raise AssertionError(f"grid live: tile inputs {tile_v.shape}, "
+                                 f"launched at {live_fwd}")
+        compare_kernels(f"grid_live_44100_tile{k}", tile_v, tile_u,
+                        tables.band, tables.band_tab, tables.half_width, 1.0,
+                        errs)
+    live_timed = time_kernel_inputs(
+        *tpyin.decode_inputs(obs[n_t // 2:n_t // 2 + 1],
+                             vprob[n_t // 2:n_t // 2 + 1]),
+        tables.band, tables.band_tab, tables.half_width)
+    emit({"phase": "times", "what": "viterbi_grid_live", **live_timed["shape"],
+          "median_ms": live_timed, "card": CARD["nvidia_smi"]})
+    rows.append(("live v1 at PyinConfig(resolution=0.05), tile 24 / halo 8, "
+                 f"{GRID_LIVE_S:.0f} s at 44 100 Hz, one tile a launch",
+                 per_call["grid_live_44100"], live_timed))
+    return rows
+
+
+def phase_warmup(tracks) -> dict:
+    """The warm-up command in a fresh copy of the package: a cold
+    transcribe (the nvcc and g++ builds included), then, with both builds
+    deleted, ``warmup`` (which must build them again), then the same
+    transcribe, which must build nothing and write the cold run's MIDI."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "checkout")
+        shutil.copytree(os.path.join(here, "aegis_tpu_torch"),
+                        os.path.join(root, "aegis_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        home = os.path.join(tmp, "home")
+        os.makedirs(home)
+        build_dir = os.path.join(root, "build", "aegis_tpu_torch")
+        native_dir = os.path.join(home, ".cache", "aegis_tpu_torch", "native")
+        wav = os.path.join(tmp, "bench60.wav")
+        write_wav(wav, tracks[22050][0], 22050)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("AEGIS_CACHE_DIR", "PYTHONPATH")}
+        env.update(HOME=home, PYTHONPATH=root)
+
+        def run(*args):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "aegis_tpu_torch",
+                                   *args], cwd=tmp, env=env,
+                                  capture_output=True, text=True, timeout=600)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{args[0]}: exit {proc.returncode}\n"
+                                     f"{proc.stderr[-4000:]}")
+            return seconds, proc.stdout
+
+        def built():
+            return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+                    for d in (build_dir, native_dir) if os.path.isdir(d)
+                    for f in sorted(os.listdir(d))}
+
+        cold_s, _ = run("transcribe", wav, os.path.join(tmp, "cold.mid"),
+                        "--sr", "22050")
+        cold_built = built()
+        if not any(f.endswith(".ptxas.txt") for f in cold_built) or not any(
+                f.startswith(native_dir) for f in cold_built):
+            raise AssertionError(f"warmup: the cold run built {cold_built}")
+        for d in (build_dir, native_dir):
+            shutil.rmtree(d)
+        warm_s, out = run("warmup", "--seconds", "60", "--sr", "22050",
+                          "--pipelines", "v1,financial,poly,live-v1")
+        warm_lines = [ln for ln in out.splitlines() if ln.startswith("warm ")]
+        after_warmup = built()
+        if set(after_warmup) != set(cold_built):
+            raise AssertionError(f"warmup built {sorted(after_warmup)}, the "
+                                 f"cold run {sorted(cold_built)}")
+        again_s, _ = run("transcribe", wav, os.path.join(tmp, "warm.mid"),
+                         "--sr", "22050")
+        if built() != after_warmup:
+            raise AssertionError("warmup: the transcribe after it built "
+                                 "again")
+        with open(os.path.join(tmp, "cold.mid"), "rb") as f:
+            cold_midi = f.read()
+        with open(os.path.join(tmp, "warm.mid"), "rb") as f:
+            warm_midi = f.read()
+        row = {"phase": "warmup", "cold_transcribe_s": cold_s,
+               "warmup_s": warm_s, "warm_lines": warm_lines,
+               "transcribe_after_warmup_s": again_s,
+               "built": sorted(os.path.basename(f) for f in after_warmup),
+               "midi_equal": cold_midi == warm_midi,
+               "midi_bytes": len(cold_midi), "card": CARD["nvidia_smi"]}
+        emit(row)
+        if len(warm_lines) != 4 or not row["midi_equal"] or not cold_midi:
+            raise AssertionError(f"warmup: {row}")
+        return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     seconds = {}
@@ -4110,6 +4384,12 @@ def main() -> int:
     mesh_rows = timed("mesh", phase_mesh, dev,
                       chord_tracks[("chord60", 22050)][0], y10, errs, total,
                       per_call)
+
+    # the finer pitch grids (the wide forward kernel) and the warm-up
+    # command in a fresh copy of the package
+    grid_rows = timed("grids", phase_grids, dev, tracks, errs, total,
+                      per_call)
+    timed("warmup", phase_warmup, tracks)
     emit({"phase_seconds": "total", "seconds": time.perf_counter() - t_start})
 
     # every main-path shape of the kernels: the call that launches it, that
@@ -4154,7 +4434,7 @@ def main() -> int:
         ("mesh (1, 1) on NCCL: run_analyze_streamed, 10 minutes at 22 050 Hz "
          "in slabs of 16 tiles; times at the stream's shape above",
          mesh_rows["stream"], tiles_ms["stream_slab_22050"])
-    ] + mesh_rows["checked"]
+    ] + mesh_rows["checked"] + grid_rows
 
     def entry(name: str) -> dict:
         first = by_shape[0][2]

@@ -129,6 +129,135 @@ def test_every_forward_variant_equals_plain(cuda, tile):
             in_smem, cluster)
 
 
+# the finer pitch grids of PyinConfig.resolution 0.05, 0.04 and 0.02 at
+# 44 100 / 44 100 / 22 050 Hz, hop 512: (n, w), past the one-pass kernel
+GRIDS = [(900, 101), (1125, 126), (2250, 501)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("n,width", GRIDS)
+def test_viterbi_kernels_equal_plain_on_finer_grids(cuda, n, width, B):
+    """Both kernels at n = 900, 1125 and 2250 states, through the wrappers
+    (the cluster they pick) and every variant of the forward kernel (one to
+    eight CTAs, both tiles, the table in global memory): backpointers,
+    final delta and states identical to the plain versions."""
+    T = 96 if B == 1 else 40
+    pairs = [wandering_pitch_obs(T, n, 80 + b, 100 + (n - 200) * b // 16, 12,
+                                 (-2, -1, 0, 1, 2), True) for b in range(B)]
+    obs = torch.from_numpy(np.stack([o for o, _ in pairs])).to(cuda)
+    vprob = torch.from_numpy(np.stack([v for _, v in pairs])).to(cuda)
+    lo_v = torch.log(obs + 1e-30).contiguous()
+    lo_u = torch.log((1.0 - vprob) / n + 1e-30).contiguous()
+    band_np = log_transition_band(n, width)
+    band = torch.from_numpy(band_np).to(cuda)
+    tab = torch.from_numpy(band_class_table(band_np, n, width)).to(cuda)
+    psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, width,
+                                                 LOG_STAY, LOG_SWITCH, tab)
+    states = pyin_cuda.viterbi_back(d_last, psi_v, psi_u)
+    torch.cuda.synchronize()
+    p_v, p_u, p_last = pyin_cuda.viterbi_fwd_plain(
+        lo_v, lo_u, pyin_cuda.dense_from_band(band, n, width),
+        LOG_STAY, LOG_SWITCH)
+    assert torch.equal(psi_v, p_v) and torch.equal(psi_u, p_u)
+    assert torch.equal(d_last, p_last)
+    assert torch.equal(states, pyin_cuda.viterbi_back_plain(p_last, p_v, p_u))
+    smem = pyin_cuda.max_shared_memory(cuda)
+    for tile in pyin_cuda.FWD_TILES:
+        for cluster in pyin_cuda.FWD_CLUSTERS:
+            for limit in (smem, 0):
+                got = pyin_cuda._launch_fwd(lo_v, lo_u, tab, n, width,
+                                            LOG_STAY, LOG_SWITCH, tile,
+                                            cluster, limit)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b)
+                           for a, b in zip(got, (p_v, p_u, p_last))), (
+                    tile, cluster, limit)
+
+
+def _most_states(w: int, tile: int, cluster: int, smem: int) -> int:
+    """The largest n one variant of the forward kernel takes at band
+    half-width w (forward_launch's shared-memory limit)."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            pyin_cuda.forward_launch(mid, w, tile, cluster, smem)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("width", [51, 501])
+def test_viterbi_kernels_equal_plain_at_the_shared_memory_limit(cuda, width,
+                                                                 B):
+    """The forward kernel at the most states its delta buffers let it take
+    (about 10 400 at w = 501 and 11 300 at w = 51 on an H100, in 6 to 23
+    passes of a CTA's threads):
+    every variant at the largest n all of them take, and the wrappers at
+    the largest n of the variant they pick, identical to the plain
+    versions; one state more raises before any launch."""
+    smem = pyin_cuda.max_shared_memory(cuda)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    variants = [(t, c) for t in pyin_cuda.FWD_TILES
+                for c in pyin_cuda.FWD_CLUSTERS]
+    most = {v: _most_states(width, *v, smem) for v in variants}
+    T = 16 if B == 1 else 6
+
+    def inputs(n):
+        pairs = [wandering_pitch_obs(T, n, 90 + b, 100 + (n - 200) * b // 16,
+                                     12, (-2, -1, 0, 1, 2), True)
+                 for b in range(B)]
+        obs = torch.from_numpy(np.stack([o for o, _ in pairs])).to(cuda)
+        vprob = torch.from_numpy(np.stack([v for _, v in pairs])).to(cuda)
+        band_np = log_transition_band(n, width)
+        return (torch.log(obs + 1e-30).contiguous(),
+                torch.log((1.0 - vprob) / n + 1e-30).contiguous(),
+                torch.from_numpy(band_np).to(cuda),
+                torch.from_numpy(band_class_table(band_np, n, width)).to(cuda))
+
+    def plain(lo_v, lo_u, band, n):
+        return pyin_cuda.viterbi_fwd_plain(
+            lo_v, lo_u, pyin_cuda.dense_from_band(band, n, width),
+            LOG_STAY, LOG_SWITCH)
+
+    n = min(most.values())
+    lo_v, lo_u, band, tab = inputs(n)
+    want = plain(lo_v, lo_u, band, n)
+    for tile, cluster in variants:
+        launch = pyin_cuda.forward_launch(n, width, tile, cluster, smem)
+        assert launch.wide and not launch.table_in_smem
+        got = pyin_cuda._launch_fwd(lo_v, lo_u, tab, n, width, LOG_STAY,
+                                    LOG_SWITCH, tile, cluster, smem)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+            n, tile, cluster, launch.passes)
+    del want
+
+    picked = pyin_cuda.pick_forward_variant(B, n_sms, n, width, smem)
+    n = most[(picked.tile, picked.cluster)]
+    lo_v, lo_u, band, tab = inputs(n)
+    psi_v, psi_u, d_last = pyin_cuda.viterbi_fwd(lo_v, lo_u, band, n, width,
+                                                 LOG_STAY, LOG_SWITCH, tab)
+    states = pyin_cuda.viterbi_back(d_last, psi_v, psi_u)
+    torch.cuda.synchronize()
+    p_v, p_u, p_last = plain(lo_v, lo_u, band, n)
+    assert torch.equal(psi_v, p_v) and torch.equal(psi_u, p_u)
+    assert torch.equal(d_last, p_last)
+    assert torch.equal(states, pyin_cuda.viterbi_back_plain(p_last, p_v, p_u))
+    del p_v, p_u, p_last
+    before = dict(pyin_cuda.LAUNCHES)
+    over = torch.zeros((B, T, n + 1), device=cuda)
+    band = torch.from_numpy(log_transition_band(n + 1, width)).to(cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pyin_cuda.viterbi_fwd(over, lo_u, band, n + 1, width, LOG_STAY,
+                              LOG_SWITCH)
+    assert pyin_cuda.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_viterbi_kernel_rejects_what_it_cannot_take(cuda):
     band = torch.from_numpy(log_transition_band(N, 51)).to(cuda)
@@ -139,9 +268,10 @@ def test_viterbi_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         pyin_cuda.viterbi_fwd(lo_v.transpose(1, 2).contiguous().transpose(1, 2),
                               lo_u, band, N, 51, 0.0, 0.0)
-    with pytest.raises(ValueError, match="states"):
-        wide = torch.zeros((1, 8, 600), device=cuda)
-        pyin_cuda.viterbi_fwd(wide, lo_u, band, 600, 51, 0.0, 0.0)
+    # any n whose delta buffers fit shared memory: 20 000 states do not
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((1, 8, 20000), device=cuda)
+        pyin_cuda.viterbi_fwd(wide, lo_u, band, 20000, 51, 0.0, 0.0)
     with pytest.raises(ValueError, match="tab"):   # a table of another width
         other = torch.from_numpy(band_class_table(
             log_transition_band(N, 101), N, 101)).to(cuda)

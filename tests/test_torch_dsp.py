@@ -53,6 +53,26 @@ def test_stft_power_matches_jax(two_tone_22k):
     np.testing.assert_allclose(got / scale, ref / scale, atol=2e-3)
 
 
+def test_rfft_stft_power_matches_jax_and_the_matmul_path(two_tone_22k):
+    """use_matmul_dft=False: torch.fft.rfft against the JAX rfft path and
+    against the port's own matmul path, each within test_dsp_parity.py's
+    atol of the maximum; the mel spectrogram takes the same switch."""
+    y, sr = two_tone_22k
+    yt, tables = torch.from_numpy(y), _tables(sr)
+    ref = np.asarray(jdsp.stft_power(y, 2048, 512, use_matmul_dft=False))
+    got = tdsp.stft_power(yt, 512, tables, use_matmul_dft=False).numpy()
+    matmul = tdsp.stft_power(yt, 512, tables).numpy()
+    assert got.dtype == np.float32 and got.shape == ref.shape == matmul.shape
+    scale = np.max(ref)
+    np.testing.assert_allclose(got / scale, ref / scale, atol=2e-3)
+    np.testing.assert_allclose(matmul / scale, got / scale, atol=2e-3)
+    mel_ref = np.asarray(jdsp.melspectrogram_t(y, sr, 2048, 512,
+                                               use_matmul_dft=False))
+    mel = tdsp.melspectrogram_t(yt, 512, tables, use_matmul_dft=False).numpy()
+    np.testing.assert_allclose(mel / np.max(mel_ref), mel_ref / np.max(mel_ref),
+                               atol=5e-3)
+
+
 def test_melspectrogram_matches_jax(two_tone_22k):
     y, sr = two_tone_22k
     ref = np.asarray(jdsp.melspectrogram_t(y, sr, 2048, 512))

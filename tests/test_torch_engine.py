@@ -501,6 +501,13 @@ _TOOL_PATHS = (
     "with device_trace(tempfile.mkdtemp()):\n"
     "    with phase('guard', quiet=True):\n"
     "        assert seng.audio_to_midi(ys) is not None\n"
+    # the warmup command and the one-note optimizer
+    "from aegis_tpu_torch.__main__ import main as cli_main\n"
+    "assert cli_main(['warmup', '--device', 'cpu', '--seconds', '0.5',\n"
+    "                 '--pipelines', 'v1,live-v1']) == 0\n"
+    "from aegis_tpu_torch.verify.per_note import optimize_single_note\n"
+    "assert optimize_single_note(ys, sev[0], 22050, 512, mode='quick',\n"
+    "                            device='cpu')['waveform']\n"
     # every app and tool module imports without streamlit, yt_dlp or
     # librosa; the Tuning Center runs headlessly through chip_smoke.py's
     # stand-in

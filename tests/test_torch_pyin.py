@@ -166,9 +166,11 @@ def test_band_table_is_the_dense_matrix(width):
         pyin_cuda.dense_from_band(band, N, width).numpy(), dense)
 
 
-# (n, w): both rates of the main path, 48 kHz's width, one n < 2w + 1
+# (n, w): both rates of the main path, 48 kHz's width, one n < 2w + 1,
+# and the finer pitch grids of resolution 0.05 / 0.04 / 0.02
 @pytest.mark.parametrize("n,width", [
-    (N, 101), (N, 51), (N, TCFG.transition_width(48000, 512)), (150, 101)])
+    (N, 101), (N, 51), (N, TCFG.transition_width(48000, 512)), (150, 101),
+    (900, 101), (1125, 126), (2250, 501)])
 def test_class_table_expands_to_the_band(n, width):
     """The band without its repetitions: (w+1, w+1) classes by offsets (n
     rows where n < 2w + 1), read out of log_transition_band and expanding
@@ -332,8 +334,6 @@ def _device_functions():
     found = {}
     for mod in pkgutil.walk_packages(aegis_tpu_torch.__path__,
                                      "aegis_tpu_torch."):
-        if mod.name.endswith("__main__"):
-            continue
         m = importlib.import_module(mod.name)
         for name, obj in vars(m).items():
             if name.startswith("_") or getattr(obj, "__module__", None) != mod.name:
@@ -392,7 +392,8 @@ def test_every_device_argument_defaults_to_the_card():
                 "models.pitchnet.run_analyze_neural_batch",
                 "models.pitchnet.train_on_batches", "utils.mesh.Mesh",
                 "utils.mesh.default_mesh", "utils.mesh.spmd",
-                "utils.mesh.run_spmd"}
+                "utils.mesh.run_spmd", "__main__.warmup",
+                "verify.per_note.optimize_single_note"}
     assert expected <= {k.replace("aegis_tpu_torch.", "") for k in found}
     for name, (_, p) in found.items():
         if p.default is not p.empty:   # a required device names itself
@@ -417,7 +418,8 @@ def test_every_device_argument_defaults_to_the_card():
     "AegisServer", "serve_main", "init_params", "init_train_state",
     "evaluate", "train", "validate", "run_benchmark", "sweep",
     "make_transcriber", "run_analyze_neural_batch", "train_on_batches",
-    "run_spmd", "spmd", "dryrun_multichip"])
+    "run_spmd", "spmd", "dryrun_multichip", "warmup", "warmup_command",
+    "optimize_single_note"])
 def test_entry_point_raises_without_a_card_when_none_is_named(
         entry, monkeypatch, tmp_path):
     """No device named means the card: without one every entry point
@@ -440,6 +442,7 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
     from aegis_tpu_torch.apps import live_monitor
     from aegis_tpu_torch.utils import mesh
     import graft_entry_torch
+    from aegis_tpu_torch import __main__ as cli
     monkeypatch.setattr(stems, "find_demucs", lambda: None)
     event = {"note": 57, "start": 0, "end": 6, "velocity": 90,
              "track": "main", "technique": None, "confidence": 0.9}
@@ -536,6 +539,11 @@ def test_entry_point_raises_without_a_card_when_none_is_named(
         "spmd": lambda: mesh.spmd(turbo.run_analyze_batch, 1, 1, y[None],
                                   audio, TCFG),
         "dryrun_multichip": lambda: graft_entry_torch.dryrun_multichip(1),
+        "warmup": lambda: cli.warmup(["v1"], [0.5]),
+        "warmup_command": lambda: cli.main(["warmup", "--seconds", "0.5",
+                                            "--pipelines", "v1"]),
+        "optimize_single_note":
+            lambda: per_note.optimize_single_note(y, event, SR, 512),
     }
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()

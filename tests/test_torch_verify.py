@@ -143,6 +143,21 @@ def test_reverse_analysis_roundtrip(engine, jengine):
     assert result["reversed_midi"] == ref["reversed_midi"]
 
 
+@pytest.mark.parametrize("mode", ["precise", "quick"])
+def test_optimize_single_note_matches_jax(mode):
+    """One note of the 60 s bench track (its third truth note, in frames):
+    the same parameters and score as the JAX package's."""
+    from aegis_tpu_torch.tools.signal_gen import generate_bench_track
+    y, truth = generate_bench_track(60.0, sr=SR, return_truth=True)
+    note = truth[2]
+    event = {"note": note["note"], "start": int(note["start"] * SR / 512),
+             "end": int(note["end"] * SR / 512), "velocity": 90}
+    got = tp.optimize_single_note(y, event, SR, 512, mode=mode, device="cpu")
+    assert got == jp.optimize_single_note(y, event, SR, 512, mode=mode)
+    assert got == tp.optimize_all_notes(y, [event], SR, 512, mode=mode,
+                                        device="cpu")[0]
+
+
 def test_per_note_optimizer(engine, jengine):
     track, _ = generate_test_track(sr=SR)
     raw = engine.audio_to_midi(track)
