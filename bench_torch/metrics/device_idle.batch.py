@@ -1,0 +1,8 @@
+"""Device: the share (%) of the traced slice of folder passes in which no
+device operation ran."""
+
+from bench_torch import readers
+
+
+def read(sl):
+    return readers.idle_pct(sl)

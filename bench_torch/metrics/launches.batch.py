@@ -1,0 +1,8 @@
+"""Device programs: device operations (kernels and copies) of the traced
+slice, a track."""
+
+from bench_torch import readers
+
+
+def read(sl):
+    return readers.ops_per_unit(sl)
