@@ -30,6 +30,7 @@ from aegis_tpu_torch.core import dsp, masks, trend
 from aegis_tpu_torch.core.cqt import onset_strength_t
 from aegis_tpu_torch.core.pyin import extract_pyin_frames, pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
+from aegis_tpu_torch.utils.prof import phase
 
 MIN_BUCKET = 1 << 16  # ~3 s @ 22050
 
@@ -186,7 +187,7 @@ def financial_tail(base: Dict[str, torch.Tensor], audio: AudioConfig,
         dist = torch.zeros((), dtype=torch.float32, device=f0.device)
 
     f0_clean = torch.where(voiced, f0, float("nan"))
-    with torch.profiler.record_function("aegis.trend"):
+    with phase("aegis.trend"):
         fin = trend.analyze_pitch_financial(f0_clean)
         combined_conf = base["voiced_probs"] * 0.5 + fin["confidence"] * 0.5
         adaptive_thr = trend.adaptive_confidence_threshold(combined_conf)
@@ -319,42 +320,45 @@ def dispatch_analyze(
     in flight before any fetch.  Resolve with fetch_analyze(handle).  The
     first call for a new length or config builds its constant tables,
     which uploads them once."""
-    device = resolve_device(device)
-    true_frames = audio.n_frames(len(y))
-    y_pad = pad_to_bucket(np.asarray(y, np.float32))
-    if transport == "int8":
-        y8, s8 = quantize_pcm8(y_pad)
-        y_dev, scale = upload(y8, device), upload(s8, device)
-    elif transport == "int4":
-        y4, s4 = quantize_pcm4(y_pad)
-        y_dev, scale = upload(y4, device), upload(s4, device)
-    elif transport == "int16":
-        y16, s = quantize_pcm16(y_pad)
-        y_dev = upload(y16, device)
-        scale = torch.full((), s, dtype=torch.float32, device=device)
-    elif transport == "float32":
-        y_dev = upload(y_pad, device)
-        scale = torch.ones((), dtype=torch.float32, device=device)
-    else:
-        raise ValueError(f"unknown transport {transport!r} "
-                         "(int8 | int4 | int16 | float32)")
-    tables = tables_from_numpy(audio, pyin_cfg, device)
-    if financial:
-        packed = analyze_financial_program_packed(
-            y_dev, scale, rake_sensitivity, audio, pyin_cfg, tables,
-            use_guitar_filters, fetch_mel)
-        rows = _FIN_ROWS
-    else:
-        packed = analyze_program_packed(y_dev, scale, rake_sensitivity, audio,
-                                        pyin_cfg, tables, fetch_mel)
-        rows = _V1_ROWS
-    return packed, rows, true_frames, audio.n_mels if fetch_mel else 0
+    with phase("aegis.enqueue"):
+        device = resolve_device(device)
+        true_frames = audio.n_frames(len(y))
+        y_pad = pad_to_bucket(np.asarray(y, np.float32))
+        if transport == "int8":
+            y8, s8 = quantize_pcm8(y_pad)
+            y_dev, scale = upload(y8, device), upload(s8, device)
+        elif transport == "int4":
+            y4, s4 = quantize_pcm4(y_pad)
+            y_dev, scale = upload(y4, device), upload(s4, device)
+        elif transport == "int16":
+            y16, s = quantize_pcm16(y_pad)
+            y_dev = upload(y16, device)
+            scale = torch.full((), s, dtype=torch.float32, device=device)
+        elif transport == "float32":
+            y_dev = upload(y_pad, device)
+            scale = torch.ones((), dtype=torch.float32, device=device)
+        else:
+            raise ValueError(f"unknown transport {transport!r} "
+                             "(int8 | int4 | int16 | float32)")
+        tables = tables_from_numpy(audio, pyin_cfg, device)
+        if financial:
+            packed = analyze_financial_program_packed(
+                y_dev, scale, rake_sensitivity, audio, pyin_cfg, tables,
+                use_guitar_filters, fetch_mel)
+            rows = _FIN_ROWS
+        else:
+            packed = analyze_program_packed(y_dev, scale, rake_sensitivity,
+                                            audio, pyin_cfg, tables,
+                                            fetch_mel)
+            rows = _V1_ROWS
+        return packed, rows, true_frames, audio.n_mels if fetch_mel else 0
 
 
 def fetch_analyze(handle) -> Dict[str, np.ndarray]:
     """Blocking half: copy the packed buffer to the host and unpack it."""
     packed, rows, true_frames, n_mels = handle
-    return _unpack(packed[:true_frames].cpu().numpy(), rows, n_mels)
+    with phase("aegis.fetch"):
+        return _unpack(packed[:true_frames].cpu().numpy(), rows, n_mels)
 
 
 def run_analyze(

@@ -50,6 +50,7 @@ from aegis_tpu_torch.engine.poly import N_MELS
 from aegis_tpu_torch.io.audio import load_audio
 from aegis_tpu_torch.midi.encode import events_to_midi
 from aegis_tpu_torch.utils.logging import get_logger
+from aegis_tpu_torch.utils.prof import phase
 
 log = get_logger("AutoEngine")
 
@@ -351,7 +352,7 @@ def dispatch_analyze_auto(y: np.ndarray, eng: "AegisAutoEngine",
     tables = tables_from_numpy(eng.audio, eng.pyin_cfg, device)
     ptabs = poly_tables(eng.sr, eng.n_fft_poly, eng.n_bins,
                         eng.bins_per_octave, N_MELS, device)
-    with torch.profiler.record_function("aegis.auto_program"):
+    with phase("aegis.auto_program"):
         buf = analyze_auto_program_packed(
             upload(y8, device), upload(s, device), rake_sensitivity,
             eng.audio, eng.pyin_cfg, tables, ptabs, eng.max_voices)
@@ -404,7 +405,7 @@ class AegisAutoEngine:
             return None
         log.info(f"Auto Perception Phase ({self.device}, "
                  f"{len(y)/self.sr:.1f}s, pyin + <= {self.max_voices} voices)")
-        with torch.profiler.record_function("aegis.auto_perception"):
+        with phase("aegis.auto_perception"):
             out = fetch_analyze_auto(dispatch_analyze_auto(
                 y, self, kwargs.get("rake_sensitivity", 0.6),
                 device=self.device), self)

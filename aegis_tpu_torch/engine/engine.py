@@ -169,7 +169,7 @@ class AegisEngine:
 
         log.info(f"Perception Phase ({self.device}, turbo={turbo_mode}, "
                  f"{len(y)/self.sr:.1f}s)")
-        with phase("aegis.perception", quiet=True):
+        with phase("aegis.perception"):
             if pitch_backend == "neural":
                 out = analyze_neural(y, self.audio, rake_sensitivity,
                                      turbo_mode, kwargs.get("fetch_mel", True),
@@ -201,7 +201,7 @@ class AegisEngine:
     def extract_events(self, raw_data: Dict, output_mid=None,
                        **kwargs) -> List[dict]:
         """Logic Filter Layer: fast re-runnable event extraction + MIDI encode."""
-        with phase("aegis.extract", quiet=True):
+        with phase("aegis.extract"):
             events = extract_events_v1(
                 rake_mask=raw_data["rake_mask"],
                 f0=raw_data["f0"],

@@ -34,6 +34,7 @@ from aegis_tpu_torch.utils.logging import get_logger
 from aegis_tpu_torch.core.analyze import dispatch_analyze, fetch_analyze
 from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.utils.mesh import Mesh, rank_device
+from aegis_tpu_torch.utils.prof import phase
 
 log = get_logger("Folder")
 
@@ -103,8 +104,11 @@ def transcribe_folder(
     os.makedirs(output_dir, exist_ok=True)
 
     duration = (end_time - start_time) if end_time else None
-    tracks = [load_audio(p, sr=sample_rate, offset=start_time,
-                         duration=duration)[0] for p in paths]
+    tracks = []
+    for i, p in enumerate(paths):
+        with phase("folder.load", track=i):
+            tracks.append(load_audio(p, sr=sample_rate, offset=start_time,
+                                     duration=duration)[0])
     lengths = [len(y) for y in tracks]
 
     audio = AudioConfig(sample_rate=sample_rate)
@@ -117,6 +121,19 @@ def transcribe_folder(
     def mid_path_of(p: str) -> str:
         return os.path.join(output_dir,
                             os.path.splitext(os.path.basename(p))[0] + ".mid")
+
+    def dispatch_ahead(dispatch, fetch) -> list:
+        """Every track queued on the device before any is fetched; each
+        track's spans carry its index in the pass (``track``)."""
+        handles = []
+        for i, y in enumerate(tracks):
+            with phase("aegis.enqueue", track=i):
+                handles.append(dispatch(y))
+        out = []
+        for i, h in enumerate(handles):
+            with phase("aegis.fetch", track=i):
+                out.append(fetch(h))
+        return out
 
     def stacked() -> np.ndarray:
         """The tracks zero-padded to the longest, as one (B, n) batch."""
@@ -142,14 +159,17 @@ def transcribe_folder(
             log.info("auto engine has no sharded batch path; running "
                      "dispatch-ahead on the default device")
         aeng = AegisAutoEngine(sample_rate=sample_rate, device=device)
-        handles = [dispatch_analyze_auto(y, aeng, rake_sensitivity,
-                                         device=device) for y in tracks]
+        per_track = dispatch_ahead(
+            lambda y: dispatch_analyze_auto(y, aeng, rake_sensitivity,
+                                            device=device),
+            lambda h: fetch_analyze_auto(h, aeng))
         results = []
-        for p, h in zip(paths, handles):
+        for i, (p, r) in enumerate(zip(paths, per_track)):
             mid_path = mid_path_of(p)
-            events = aeng.extract_events(fetch_analyze_auto(h, aeng),
-                                         output_mid=mid_path if lead else None,
-                                         **extract_kwargs)
+            with phase("folder.extract", track=i):
+                events = aeng.extract_events(
+                    r, output_mid=mid_path if lead else None,
+                    **extract_kwargs)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
@@ -161,11 +181,12 @@ def transcribe_folder(
 
         peng = AegisPolyEngine(sample_rate=sample_rate, device=device)
         if single_chip:
-            handles = [dispatch_analyze_poly(
-                y, sample_rate, peng.n_fft, peng.hop_length, peng.n_bins,
-                peng.bins_per_octave, peng.max_voices,
-                transport=peng.transport, device=device) for y in tracks]
-            per_track = [fetch_analyze_poly(h) for h in handles]
+            per_track = dispatch_ahead(
+                lambda y: dispatch_analyze_poly(
+                    y, sample_rate, peng.n_fft, peng.hop_length, peng.n_bins,
+                    peng.bins_per_octave, peng.max_voices,
+                    transport=peng.transport, device=device),
+                fetch_analyze_poly)
         else:
             from aegis_tpu_torch.engine.turbo import run_analyze_poly_turbo
 
@@ -180,10 +201,11 @@ def transcribe_folder(
                 {k: np.asarray(v[i])[: 1 + lengths[i] // peng.hop_length]
                  for k, v in out.items()} for i in range(len(tracks))]
         results = []
-        for p, r in zip(paths, per_track):
+        for i, (p, r) in enumerate(zip(paths, per_track)):
             mid_path = mid_path_of(p)
-            events = peng.extract_events(r, output_mid=mid_path if lead
-                                         else None, **extract_kwargs)
+            with phase("folder.extract", track=i):
+                events = peng.extract_events(r, output_mid=mid_path if lead
+                                             else None, **extract_kwargs)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
@@ -203,23 +225,24 @@ def transcribe_folder(
                 rake_sensitivity, n_fft=audio.n_fft, n_mels=audio.n_mels,
                 financial=financial, device=device, mesh=mesh))
         else:
-            handles = [dispatch_analyze_neural(
-                y, sample_rate, audio.hop_length, params, rake_sensitivity,
-                n_fft=audio.n_fft, n_mels=audio.n_mels, fetch_mel=False,
-                financial=financial, transport=transport, device=device)
-                for y in tracks]
-            per_track = [fetch_analyze_neural(h) for h in handles]
+            per_track = dispatch_ahead(
+                lambda y: dispatch_analyze_neural(
+                    y, sample_rate, audio.hop_length, params,
+                    rake_sensitivity, n_fft=audio.n_fft, n_mels=audio.n_mels,
+                    fetch_mel=False, financial=financial,
+                    transport=transport, device=device),
+                fetch_analyze_neural)
         # PitchNet fires up to ~a window early; forward-snap such starts to
         # the attack rise (the v1 facade's backend convention; the
         # financial facade reads the pitch_backend marker below)
         if not financial:
             extract_kwargs.setdefault("onset_fwd_snap_ms", 100.0)
     elif single_chip:
-        handles = [dispatch_analyze(y, audio, pyin_cfg, rake_sensitivity,
-                                    financial=financial, fetch_mel=False,
-                                    transport=transport, device=device)
-                   for y in tracks]
-        per_track = [fetch_analyze(h) for h in handles]
+        per_track = dispatch_ahead(
+            lambda y: dispatch_analyze(y, audio, pyin_cfg, rake_sensitivity,
+                                       financial=financial, fetch_mel=False,
+                                       transport=transport, device=device),
+            fetch_analyze)
     else:
         from aegis_tpu_torch.engine.turbo import run_analyze_batch
 
@@ -237,15 +260,17 @@ def transcribe_folder(
         feng = AegisFinancialEngine(sample_rate=sample_rate,
                                     hop_length=audio.hop_length,
                                     n_fft=audio.n_fft, device=device)
-        for p, r in zip(paths, per_track):
+        for i, (p, r) in enumerate(zip(paths, per_track)):
             # the facade's backend marker (the neural forward onset snap)
             r["pitch_backend"] = pitch_backend
-            events, info = feng.extract_events(r, **extract_kwargs)
             mid_path = mid_path_of(p)
-            if lead:
-                events_to_midi_financial(events, sample_rate,
-                                         audio.hop_length,
-                                         bpm=info.get("bpm"), output=mid_path)
+            with phase("folder.extract", track=i):
+                events, info = feng.extract_events(r, **extract_kwargs)
+                if lead:
+                    events_to_midi_financial(events, sample_rate,
+                                             audio.hop_length,
+                                             bpm=info.get("bpm"),
+                                             output=mid_path)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
@@ -253,22 +278,23 @@ def transcribe_folder(
     # onset refinement on by default, the library default;
     # use_onsets=False restores the reference's merge/lag semantics
     use_onsets = extract_kwargs.pop("use_onsets", True)
-    for p, r in zip(paths, per_track):
-        events = extract_events_v1(
-            rake_mask=r["rake_mask"],
-            f0=np.nan_to_num(np.asarray(r["f0"], np.float64)),
-            voiced_flag=r["voiced_flag"],
-            active_probs=np.asarray(r["voiced_probs"], np.float64),
-            rms=np.asarray(r["rms"], np.float64),
-            sr=sample_rate, hop_length=audio.hop_length,
-            onset_env=(np.asarray(r["onset_env"], np.float64)
-                       if use_onsets else None),
-            **extract_kwargs,
-        )
+    for i, (p, r) in enumerate(zip(paths, per_track)):
         mid_path = mid_path_of(p)
-        if lead:
-            events_to_midi(events, sample_rate, audio.hop_length,
-                           output=mid_path)
+        with phase("folder.extract", track=i):
+            events = extract_events_v1(
+                rake_mask=r["rake_mask"],
+                f0=np.nan_to_num(np.asarray(r["f0"], np.float64)),
+                voiced_flag=r["voiced_flag"],
+                active_probs=np.asarray(r["voiced_probs"], np.float64),
+                rms=np.asarray(r["rms"], np.float64),
+                sr=sample_rate, hop_length=audio.hop_length,
+                onset_env=(np.asarray(r["onset_env"], np.float64)
+                           if use_onsets else None),
+                **extract_kwargs,
+            )
+            if lead:
+                events_to_midi(events, sample_rate, audio.hop_length,
+                               output=mid_path)
         results.append((p, mid_path, len(events)))
         log.info(f"  {os.path.basename(p)}: {len(events)} events")
     return results

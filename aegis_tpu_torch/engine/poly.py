@@ -34,6 +34,7 @@ from aegis_tpu_torch.io.audio import load_audio
 from aegis_tpu_torch.midi.encode import events_to_midi
 from aegis_tpu_torch.midi.tabs import generate_tabs_chords
 from aegis_tpu_torch.utils.logging import get_logger
+from aegis_tpu_torch.utils.prof import phase
 
 log = get_logger("PolyEngine")
 
@@ -53,23 +54,26 @@ def dispatch_analyze_poly(y: np.ndarray, sr: int, n_fft: int = 2048,
 
     ``transport``: "int8" (default: block-float,
     core.analyze.quantize_pcm8) or "int16" (per-track scale)."""
-    device = resolve_device(device)
-    true_frames = 1 + len(y) // hop_length
-    y_pad = pad_to_bucket(np.asarray(y, np.float32))
-    if transport == "int8":
-        yq, s = quantize_pcm8(y_pad)
-        y_dev, scale = upload(yq, device), upload(s, device)
-    elif transport == "int16":
-        yq, s = quantize_pcm16(y_pad)
-        y_dev = upload(yq, device)
-        scale = torch.full((), s, dtype=torch.float32, device=device)
-    else:
-        raise ValueError(f"unknown transport {transport!r} (int8 | int16)")
-    tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, N_MELS, device)
-    with torch.profiler.record_function("aegis.poly_program"):
-        buf = P.analyze_poly_program_packed(y_dev, scale, hop_length, tables,
-                                            max_voices)
-    return buf, true_frames, max_voices, bins_per_octave
+    with phase("aegis.enqueue"):
+        device = resolve_device(device)
+        true_frames = 1 + len(y) // hop_length
+        y_pad = pad_to_bucket(np.asarray(y, np.float32))
+        if transport == "int8":
+            yq, s = quantize_pcm8(y_pad)
+            y_dev, scale = upload(yq, device), upload(s, device)
+        elif transport == "int16":
+            yq, s = quantize_pcm16(y_pad)
+            y_dev = upload(yq, device)
+            scale = torch.full((), s, dtype=torch.float32, device=device)
+        else:
+            raise ValueError(f"unknown transport {transport!r} "
+                             "(int8 | int16)")
+        tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, N_MELS,
+                             device)
+        with phase("aegis.poly_program"):
+            buf = P.analyze_poly_program_packed(y_dev, scale, hop_length,
+                                                tables, max_voices)
+        return buf, true_frames, max_voices, bins_per_octave
 
 
 def fetch_analyze_poly(handle) -> Dict[str, np.ndarray]:
@@ -79,8 +83,9 @@ def fetch_analyze_poly(handle) -> Dict[str, np.ndarray]:
     oracle (the bucket-padding tail carries ~zero salience, so the global
     acceptance peak over true frames equals the padded device max)."""
     buf, true_frames, max_voices, bins_per_octave = handle
-    return P.unpack_poly_voices(buf[:true_frames].cpu().numpy(),
-                                max_voices, bins_per_octave)
+    with phase("aegis.fetch"):
+        return P.unpack_poly_voices(buf[:true_frames].cpu().numpy(),
+                                    max_voices, bins_per_octave)
 
 
 class AegisPolyEngine:
@@ -133,7 +138,7 @@ class AegisPolyEngine:
         mode = normalize_turbo_mode(
             kwargs.get("turbo_mode", False), len(y), self.sr,
             kwargs.get("stream_threshold_s", 240.0), allow_stream=False)
-        with torch.profiler.record_function("aegis.poly_perception"):
+        with phase("aegis.poly_perception"):
             if mode == "tiles":
                 from aegis_tpu_torch.engine.turbo import run_analyze_poly_turbo
 
@@ -169,6 +174,11 @@ class AegisPolyEngine:
         absolute-salience harmonic dedup, the raw-CQT recovery chain
         (core.poly.refine_poly_events).  ``use_onsets=False`` is the plain
         pitch-only segmentation."""
+        with phase("aegis.poly_extract"):
+            return self._extract_events(analysis, output_mid, **kwargs)
+
+    def _extract_events(self, analysis: Dict[str, np.ndarray], output_mid,
+                        **kwargs) -> List[dict]:
         from aegis_tpu_torch.ref.dsp_ref import amplitude_to_db
 
         use_onsets = kwargs.get("use_onsets", True)

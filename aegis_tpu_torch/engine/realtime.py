@@ -49,6 +49,7 @@ from aegis_tpu_torch.core.analyze import (_BOOL_ROWS, _GTR_ROWS, _V1_ROWS,
                                           quantize_pcm16, reflect_head,
                                           upload)
 from aegis_tpu_torch.core.poly import unpack_poly_voices
+from aegis_tpu_torch.utils.prof import phase
 
 # ---------------------------------------------------------------------------
 # Finalized-event horizon: a live poll that re-runs extraction +
@@ -225,7 +226,7 @@ def _tile_program(audio: AudioConfig, pyin_cfg: PyinConfig,
 
     def program(slab16: torch.Tensor, scale: float, rake_sens: float,
                 ref_power: torch.Tensor):
-        with torch.profiler.record_function("aegis.live_tile"):
+        with phase("aegis.live_tile"):
             slab = (slab16.to(torch.float32) * scale)[None]      # (1, span)
             mel_power = _tile_mel_power(slab, audio, pyin_cfg, turbo, tables)
             # causal running reference over tile INTERIORS (halo frames are
@@ -315,18 +316,19 @@ class StreamingTranscriber:
             # silently drop the real tail on a re-finalize
             raise RuntimeError("stream already finalized; feed() is no "
                                "longer accepted")
-        chunk = np.asarray(chunk, np.float32).reshape(-1)
-        self._pending = np.concatenate([self._pending, chunk])
-        self._n_fed += len(chunk)
-        span = self._ctx + self._tile_samp + self._ctx  # left+tile+right
-        done = 0
-        while len(self._pending) >= span:
-            self._run_tile(self._pending[:span])
-            # keep the tail from the tile start onward (next tile's left
-            # halo is this tile's tail)
-            self._pending = self._pending[self._tile_samp:]
-            done += 1
-        return done
+        with phase("live.feed"):
+            chunk = np.asarray(chunk, np.float32).reshape(-1)
+            self._pending = np.concatenate([self._pending, chunk])
+            self._n_fed += len(chunk)
+            span = self._ctx + self._tile_samp + self._ctx  # left+tile+right
+            done = 0
+            while len(self._pending) >= span:
+                self._run_tile(self._pending[:span])
+                # keep the tail from the tile start onward (next tile's
+                # left halo is this tile's tail)
+                self._pending = self._pending[self._tile_samp:]
+                done += 1
+            return done
 
     def _run_tile(self, slab: np.ndarray) -> None:
         program = _tile_program(self.audio, self.pyin_cfg, self.turbo,
@@ -338,7 +340,8 @@ class StreamingTranscriber:
             upload(slab16, self.device), float(np.float32(scale)),
             float(self.rake_sensitivity), self._ref_power)
         # the tile's one device->host copy; the reference stays on the device
-        self._rows.append(rows.cpu().numpy())
+        with phase("aegis.live_fetch"):
+            self._rows.append(rows.cpu().numpy())
 
     # ------------------------------------------------------------------ read
 
@@ -570,6 +573,10 @@ class StreamingTranscriber:
         behind a validated freeze cut are cached and only the active tail
         re-extracts (module header; equality with the cache-free poll is
         pinned by tests/test_torch_realtime.py)."""
+        with phase("live.poll"):
+            return self._poll_events()
+
+    def _poll_events(self) -> List[dict]:
         if self._final_rows is not None:
             rows = self._final_rows
             if len(rows.get("f0", ())) == 0:
@@ -695,7 +702,7 @@ def _poly_tile_program(sr: int, n_fft: int, hop: int, n_mels: int,
 
     def program(slabs16: torch.Tensor, scale: float,
                 ref_power: torch.Tensor):
-        with torch.profiler.record_function("aegis.live_poly_tile"):
+        with phase("aegis.live_poly_tile"):
             y = slabs16.to(torch.float32) * scale
             rows, new_ref = poly_tile_rows(
                 y[0:1], y[1:2], hop, tile, halo, tables, max_voices,

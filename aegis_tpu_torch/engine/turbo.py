@@ -311,7 +311,7 @@ def analyze_audio_sharded(
         f0_full = m.all_gather_time(f0_clean, dim=1)
         probs_full = m.all_gather_time(out["voiced_probs"].reshape(b, L),
                                        dim=1)
-        with phase("aegis.trend", quiet=True):
+        with phase("aegis.trend"):
             fin = trend.analyze_pitch_financial(f0_full)
             combined = probs_full * 0.5 + fin["confidence"] * 0.5
             thr = trend.adaptive_confidence_threshold(combined)  # (b,)
@@ -615,7 +615,7 @@ def run_analyze_poly_turbo(
                                  true_len=ys2.shape[1])
 
     tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, n_mels, device)
-    with phase("aegis.poly_program", quiet=True):
+    with phase("aegis.poly_program"):
         packed = analyze_poly_sharded(
             upload(y16, device), upload(scale, device), upload(edge, device),
             hop_length, max_voices, tables, n_tiles, tile, halo, mesh=mesh)

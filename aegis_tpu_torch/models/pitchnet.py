@@ -53,6 +53,7 @@ from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _V1_ROWS, PCM8_BLOCK,
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.tables import tables_from_numpy
 from aegis_tpu_torch.utils.mesh import SOLO, Mesh, resolve_mesh
+from aegis_tpu_torch.utils.prof import phase
 
 SR_NATIVE = 22050  # the net is trained at this rate; other rates resample
 WIN = 2048
@@ -669,7 +670,7 @@ def run_analyze_neural_streamed(
     # of the bucket-tail reflection, which the pitch and RMS paths see as
     # zeros
     handles = []
-    with torch.profiler.record_function("aegis.neural_slabs"):
+    with phase("aegis.neural_slabs"):
         for k, (s16, s22) in enumerate(slabs):
             if k * S >= true_frames:
                 break
@@ -730,7 +731,7 @@ def dispatch_analyze_neural(
     y_q, s = _quant(y_pad)
     rows = _FIN_ROWS if financial else _V1_ROWS
 
-    with torch.profiler.record_function("aegis.neural_program"):
+    with phase("aegis.neural_program"):
         if sr == SR_NATIVE:
             if financial:
                 packed = analyze_neural_financial_packed(
@@ -861,7 +862,7 @@ def run_analyze_neural_batch(
     audio = AudioConfig(sample_rate=sr, hop_length=hop_length, n_fft=n_fft,
                         n_mels=n_mels)
     packed = []
-    with torch.profiler.record_function("aegis.neural_batch"):
+    with phase("aegis.neural_batch"):
         for i in range(per):
             out = _neural_native_rows(y_dev[i], s_dev[i], rake_sensitivity,
                                       params, sr, hop_length, n_fft, n_mels)

@@ -64,6 +64,7 @@ from aegis_tpu_torch.synth.adsr import analyze_envelope, synthesize_midi_adsr
 from aegis_tpu_torch.synth.fluidsynth import synthesize_midi
 from aegis_tpu_torch.synth.presets import EFFECT_PRESETS, GUITAR_ADSR_PRESETS
 from aegis_tpu_torch.utils.logging import get_logger
+from aegis_tpu_torch.utils.prof import phase
 
 log = get_logger("Server")
 
@@ -106,6 +107,16 @@ def _wav_bytes(y: np.ndarray, sr: int) -> bytes:
     return buf.getvalue()
 
 
+class _SpanRouter(Router):
+    """The routes, each routed call one root span, ``serve.request``, that
+    the server's and the engines' spans of the call nest under."""
+
+    def dispatch(self, method: str, path: str, query: Dict[str, str],
+                 body: bytes, content_type: str) -> Response:
+        with phase("serve.request", method=method, path=path):
+            return super().dispatch(method, path, query, body, content_type)
+
+
 class AegisServer:
     """All state + routes.  ``router`` can be mounted by serve.http.
 
@@ -126,7 +137,7 @@ class AegisServer:
         self._lazy_lock = threading.Lock()
         self.sessions = SessionStore(persist_dir=persist_dir)
         self.temp_dir = temp_dir or tempfile.mkdtemp(prefix="aegis_")
-        self.router = Router()
+        self.router = _SpanRouter()
         self._register()
 
     @property
@@ -208,9 +219,10 @@ class AegisServer:
                                  "(live-stream sessions use "
                                  "/api/stream-feed)")
         try:
-            y, _ = load_audio(sess["file_path"], sr=sr or self.engine.sr,
-                              offset=start,
-                              duration=(end - start) if end else None)
+            with phase("serve.decode"):
+                y, _ = load_audio(sess["file_path"],
+                                  sr=sr or self.engine.sr, offset=start,
+                                  duration=(end - start) if end else None)
         except ValueError as e:
             raise HTTPError(400, f"could not decode audio: {e}")
         return y
@@ -372,14 +384,16 @@ class AegisServer:
             sid = self.sessions.create(file_name=filename, raw_data=None,
                                        events=None, midi_data=None)
             path = os.path.join(self.temp_dir, f"{sid}{suffix}")
-            with open(path, "wb") as f:
-                f.write(data)
-            # probe the duration ONCE here (WAV = header math, other
-            # formats = ffprobe; never a sample decode) so /api/analyze's
-            # turbo=auto decision is format-agnostic and upload stays cheap
-            from aegis_tpu_torch.io.audio import probe_duration
+            with phase("serve.upload"):
+                with open(path, "wb") as f:
+                    f.write(data)
+                # probe the duration ONCE here (WAV = header math, other
+                # formats = ffprobe; never a sample decode) so
+                # /api/analyze's turbo=auto decision is format-agnostic and
+                # upload stays cheap
+                from aegis_tpu_torch.io.audio import probe_duration
 
-            duration_s = probe_duration(data)
+                duration_s = probe_duration(data)
             self.sessions.update(sid, file_path=path, duration_s=duration_s)
             return json_response({"session_id": sid, "file_name": filename,
                                   "duration_s": duration_s,
@@ -437,10 +451,11 @@ class AegisServer:
                 raise HTTPError(400, "Analysis failed - empty audio?")
             sess["raw_data"] = raw
             events, midi_data, params = self._extract(sess, query)
-            self.sessions.update(sid, events=events, midi_data=midi_data,
-                                 params=params,
-                                 hop_length=self.engine.hop_length)
-            self.sessions.checkpoint_raw(sid)
+            with phase("serve.session"):
+                self.sessions.update(sid, events=events, midi_data=midi_data,
+                                     params=params,
+                                     hop_length=self.engine.hop_length)
+                self.sessions.checkpoint_raw(sid)
             mode = ({"off": "fused", "tiles": "fused",
                      "stream": "stream", "auto": "auto"}
                     if pitch_backend == "neural" else
@@ -451,18 +466,20 @@ class AegisServer:
                 # the engine falls back to the fused program at rates with
                 # no integral 22.05 kHz hop — report what actually ran
                 mode = "fused"
-            return json_response({
-                "session_id": sid,
-                "num_events": len(events),
-                "events": _events_json(events),
-                "midi_base64": base64.b64encode(midi_data).decode(),
-                "analysis_mode": mode,
-                "pitch_backend": pitch_backend,
-                "sample_rate": self.engine.sr,
-                "hop_length": self.engine.hop_length,
-                "bpm": params.get("bpm"),
-                "message": f"Analysis complete: {len(events)} notes detected",
-            })
+            with phase("serve.respond"):
+                return json_response({
+                    "session_id": sid,
+                    "num_events": len(events),
+                    "events": _events_json(events),
+                    "midi_base64": base64.b64encode(midi_data).decode(),
+                    "analysis_mode": mode,
+                    "pitch_backend": pitch_backend,
+                    "sample_rate": self.engine.sr,
+                    "hop_length": self.engine.hop_length,
+                    "bpm": params.get("bpm"),
+                    "message": (f"Analysis complete: {len(events)} notes "
+                                "detected"),
+                })
 
         @r.post("/api/refilter/{sid}")
         def refilter(sid, query, **kw):
@@ -692,16 +709,17 @@ class AegisServer:
             analysis.pop("y", None)
             sess["poly_analysis"] = analysis
             events, midi_data, bpm = self._extract_poly(sess, query)
-            return json_response({
-                "session_id": sid,
-                "num_events": len(events),
-                "events": _events_json(events),
-                "midi_base64": base64.b64encode(midi_data).decode(),
-                "bpm": bpm,
-                "sample_rate": self.poly_engine.sr,
-                "hop_length": self.poly_engine.hop_length,
-                "message": f"Polyphonic analysis: {len(events)} notes",
-            })
+            with phase("serve.respond"):
+                return json_response({
+                    "session_id": sid,
+                    "num_events": len(events),
+                    "events": _events_json(events),
+                    "midi_base64": base64.b64encode(midi_data).decode(),
+                    "bpm": bpm,
+                    "sample_rate": self.poly_engine.sr,
+                    "hop_length": self.poly_engine.hop_length,
+                    "message": f"Polyphonic analysis: {len(events)} notes",
+                })
 
         @r.post("/api/analyze-auto/{sid}")
         def analyze_auto(sid, query, **kw):

@@ -499,7 +499,7 @@ _TOOL_PATHS = (
     "assert sweep(b_values=(0.0,), mono_duration=3.0, poly_seeds=(1,),\n"
     "             quiet=True, device='cpu')['f1_by_B']['0']\n"
     "with device_trace(tempfile.mkdtemp()):\n"
-    "    with phase('guard', quiet=True):\n"
+    "    with phase('guard'):\n"
     "        assert seng.audio_to_midi(ys) is not None\n"
     # the warmup command and the one-note optimizer
     "from aegis_tpu_torch.__main__ import main as cli_main\n"

@@ -7,7 +7,6 @@ leaves its ranges in a ``torch.profiler`` trace.
 """
 
 import json
-import logging
 import os
 import subprocess
 import sys
@@ -119,25 +118,22 @@ def test_validate_command(tmp_path):
 
 
 def test_phase_and_device_trace(tmp_path):
-    """``phase`` leaves its range in a CPU profiler trace and logs its
-    seconds unless quiet; ``device_trace`` writes a Chrome trace holding
-    the engine's ranges."""
-    records = []
-    handler = logging.Handler()
-    handler.emit = records.append
-    prof.log.addHandler(handler)
-    try:
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CPU]) as p:
-            with prof.phase("test.quiet", quiet=True):
-                torch.ones(8).sum()
-            with prof.phase("test.loud"):
-                torch.ones(8).sum()
-    finally:
-        prof.log.removeHandler(handler)
+    """``phase`` leaves its range in a CPU profiler trace and its span,
+    with its attributes, among ``prof.spans()``; ``device_trace`` writes a
+    Chrome trace holding the engine's ranges."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as p:
+        with prof.phase("test.quiet"):
+            torch.ones(8).sum()
+        with prof.phase("test.loud", k=2):
+            torch.ones(8).sum()
     names = {e.key for e in p.key_averages()}
     assert {"test.quiet", "test.loud"} <= names
-    assert [r.getMessage().split(":")[0] for r in records] == ["test.loud"]
+    rec = [s for s in prof.spans()
+           if s.name in ("test.quiet", "test.loud")][-2:]
+    assert [(s.name, s.attrs, s.parent) for s in rec] == [
+        ("test.quiet", {}, None), ("test.loud", {"k": 2}, None)]
+    assert rec[0].end_ns <= rec[1].start_ns <= rec[1].end_ns
 
     eng = AegisEngine(sample_rate=22050, device="cpu")
     y = generate_test_track(sr=22050)[0][:22050]
