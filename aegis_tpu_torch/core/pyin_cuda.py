@@ -12,7 +12,10 @@ kernel launch adds one to ``LAUNCHES[name]``, records its batch size B in
 ``SHAPES[name][shape]``, so a run can show that it went through the
 kernels, with how many sequences and at which shapes.  The counts
 and the build are shared by every thread of a process (the REST server runs
-requests in threads), so each is updated under a lock.
+requests in threads), so each is updated under a lock.  Launches a thread
+makes inside ``recording_launches()`` (a CUDA graph's warm-up and capture)
+are recorded there and not counted; ``count_launches`` counts a recorded
+list once, for each replay of the graph.
 
 The library is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
 under the repository root, keyed by a hash of the source and the flags,
@@ -33,6 +36,7 @@ The backtrace kernels cut the frames into chunks of ``BACK_CHUNK``;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,7 +45,7 @@ import subprocess
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -178,6 +182,8 @@ _LIB = None
 _BUILD_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+# the list a thread records its launches into instead of counting them
+_RECORD = threading.local()
 
 
 # --------------------------------------------------------------------------
@@ -247,11 +253,34 @@ def library() -> ctypes.CDLL:
 
 def _count(name: str, shape: tuple) -> None:
     """One launch of kernel ``name`` at ``shape``, batch size first."""
+    recorded = getattr(_RECORD, "launches", None)
+    if recorded is not None:
+        recorded.append((name, shape))
+        return
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         LAST_BATCH[name] = shape[0]
         SEQUENCES[name] += shape[0]
         SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[List[Tuple[str, tuple]]]:
+    """The launches this thread makes inside, as (name, shape) pairs in
+    their order, instead of counting them: what a CUDA graph captured
+    launches nothing until it is replayed."""
+    outer = getattr(_RECORD, "launches", None)
+    _RECORD.launches = recorded = []
+    try:
+        yield recorded
+    finally:
+        _RECORD.launches = outer
+
+
+def count_launches(launched: List[Tuple[str, tuple]]) -> None:
+    """Count launches recorded by ``recording_launches``: one replay."""
+    for name, shape in launched:
+        _count(name, shape)
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,

@@ -22,6 +22,10 @@ B = 1 and T = tile + 2 * halo frames) with two online adaptations:
     (fused / tiles / stream).  The card's own tile times, ingest margins
     and poll times are in PERF.md.
 
+On the card the tile program's launch sequence is captured once as a CUDA
+graph for each (config, device), and every tile of every session of that
+program replays it (``_LiveGraph``); the CPU runs the same body eagerly.
+
 Host memory grows only by the per-frame output rows (~40 B/frame);
 ``poll_events()`` re-runs the (native C++) event extraction over the
 accumulated rows — the same "instant re-filter" contract as the offline
@@ -38,6 +42,7 @@ voice-acceptance peak is applied on the host at poll time.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -45,6 +50,7 @@ import torch
 
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
+from aegis_tpu_torch.core import pyin_cuda
 from aegis_tpu_torch.core.analyze import (_BOOL_ROWS, _GTR_ROWS, _V1_ROWS,
                                           quantize_pcm16, reflect_head,
                                           upload)
@@ -207,42 +213,152 @@ class _RowCat:
         return self._buf[:self._len]
 
 
+class _LiveGraph:
+    """The tile body captured once as a CUDA graph, replayed for every tile.
+
+    The body's launch sequence is fixed for one (config, device): one slab
+    length, B = 1, T = tile + 2 * halo.  Its inputs (the int16 slab, the
+    0-d dequant scale, the 0-d rake sensitivity, the 0-d running
+    reference) and outputs (the packed rows, the new reference) are static
+    tensors shared by every session of the program, so a replay holds the
+    graph's lock from the copies into the inputs to the copies out of the
+    outputs."""
+
+    def __init__(self, body, slab_len: int, device: torch.device):
+        self.device = device
+        self.slab16 = torch.zeros(slab_len, dtype=torch.int16, device=device)
+        self.scale = torch.zeros((), dtype=torch.float32, device=device)
+        self.rake = torch.zeros((), dtype=torch.float32, device=device)
+        self.ref = torch.zeros((), dtype=torch.float32, device=device)
+        self._lock = threading.Lock()
+        # the last replay's copies out, which the next copies in follow
+        self._done = torch.cuda.Event()
+
+        def run():
+            return body(self.slab16, self.scale, self.rake, self.ref)
+
+        with torch.cuda.device(device):
+            # eagerly first, on a side stream: loads the Viterbi library,
+            # makes the cuBLAS and cuFFT handles and plans, fills the
+            # caching allocator; then the capture.  Handler threads of the
+            # server may launch meanwhile: only this thread's calls are
+            # checked (thread_local)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), pyin_cuda.recording_launches():
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with pyin_cuda.recording_launches() as self.launched, \
+                    torch.cuda.graph(self.graph, stream=side,
+                                     capture_error_mode="thread_local"):
+                self.rows, self.new_ref = run()
+
+    def __call__(self, slab16: torch.Tensor, scale: float, rake_sens: float,
+                 ref_power: torch.Tensor):
+        """One tile: the session's uploaded slab, its scale, its rake
+        sensitivity and its own reference in, its rows (a new tensor) out;
+        ``ref_power`` is updated in place."""
+        with self._lock, torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream()
+            stream.wait_event(self._done)
+            self.slab16.copy_(slab16)
+            self.scale.fill_(scale)
+            self.rake.fill_(rake_sens)
+            self.ref.copy_(ref_power)
+            with phase("aegis.live_graph"):
+                self.graph.replay()
+            pyin_cuda.count_launches(self.launched)
+            ref_power.copy_(self.new_ref)
+            rows = self.rows.clone()
+            self._done.record(stream)
+        return rows, ref_power
+
+
+# one capture at a time in the process (torch.cuda.graph synchronizes the
+# device and empties the allocator's cache on entry)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _TileProgram:
+    """One live tile program per (config, device): slab + running dB ref ->
+    packed rows + updated ref.  ``financial=True`` adds the per-tile
+    guitar-filter rows (_GTR_ROWS: mute mask, sub-E2-corrected f0,
+    distortion partial sums) — the whole-track trend stack runs on the
+    HOST at poll time.
+
+    On the CPU every tile runs ``body`` eagerly.  On CUDA the body is
+    captured once, at the first tile (``_LiveGraph``), and every tile of
+    every session replays it: one graph launch in place of ~3 600 kernel
+    launches.  A capture that fails raises; nothing falls back to the
+    eager body."""
+
+    def __init__(self, audio: AudioConfig, pyin_cfg: PyinConfig,
+                 turbo: TurboConfig, financial: bool,
+                 use_guitar_filters: bool, device: torch.device):
+        from aegis_tpu_torch.core.tables import tables_from_numpy
+
+        self.audio, self.pyin_cfg, self.turbo = audio, pyin_cfg, turbo
+        self.financial = financial
+        self.use_guitar_filters = use_guitar_filters
+        self.device = device
+        self.rows_spec = _GTR_ROWS if financial else _V1_ROWS
+        self.tables = tables_from_numpy(audio, pyin_cfg, device)
+        self._graph: Optional[_LiveGraph] = None
+
+    def body(self, slab16: torch.Tensor, scale: torch.Tensor,
+             rake_sens: torch.Tensor, ref_power: torch.Tensor):
+        """The tile's device work over fixed-shape tensors: the int16 slab
+        (span,), its 0-d float32 dequant scale, the 0-d float32 rake
+        sensitivity and the 0-d running reference -> rows (tile,
+        len(rows_spec)), the new reference."""
+        from aegis_tpu_torch.engine.turbo import _tile_analyze, _tile_mel_power
+
+        audio, pyin_cfg, turbo = self.audio, self.pyin_cfg, self.turbo
+        tile, halo = turbo.tile_frames, turbo.halo_frames
+        amin = 1e-10
+        slab = (slab16.to(torch.float32) * scale)[None]          # (1, span)
+        mel_power = _tile_mel_power(slab, audio, pyin_cfg, turbo, self.tables)
+        # causal running reference over tile INTERIORS (halo frames are
+        # interior frames of neighboring tiles)
+        interior_max = torch.amax(mel_power[:, halo: halo + tile])
+        new_ref = torch.maximum(ref_power, interior_max)
+        mel_db = 10.0 * torch.log10(torch.clamp_min(mel_power, amin))
+        mel_db = mel_db - 10.0 * torch.log10(torch.clamp_min(new_ref, amin))
+        mel_db = torch.clamp_min(mel_db, -80.0)
+        out = _tile_analyze(slab, mel_db, rake_sens, audio, pyin_cfg, turbo,
+                            self.tables, financial=self.financial,
+                            use_guitar_filters=self.use_guitar_filters)
+        cols = [out[k][0].to(torch.float32)[:, None] for k in self.rows_spec]
+        return torch.cat(cols, dim=1), new_ref
+
+    def __call__(self, slab16: torch.Tensor, scale: float, rake_sens: float,
+                 ref_power: torch.Tensor):
+        """One tile: the uploaded int16 slab, its dequant scale (a float32
+        value), the rake sensitivity and the session's reference ->
+        (rows, new reference), both on the device.  The rake enters as a
+        float32, the type it is compared in."""
+        with phase("aegis.live_tile"):
+            if self.device.type != "cuda":
+                return self.body(
+                    slab16, torch.tensor(scale, dtype=torch.float32),
+                    torch.tensor(rake_sens, dtype=torch.float32), ref_power)
+            if self._graph is None:
+                with _CAPTURE_LOCK:
+                    if self._graph is None:
+                        self._graph = _LiveGraph(self.body, slab16.shape[0],
+                                                 self.device)
+            return self._graph(slab16, scale, rake_sens, ref_power)
+
+
 @functools.lru_cache(maxsize=8)
 def _tile_program(audio: AudioConfig, pyin_cfg: PyinConfig,
                   turbo: TurboConfig, financial: bool = False,
                   use_guitar_filters: bool = True,
-                  device: torch.device = torch.device("cpu")):
-    """One program per (config, device): slab + running dB ref -> packed
-    rows + updated ref.  ``financial=True`` adds the per-tile guitar-filter
-    rows (_GTR_ROWS: mute mask, sub-E2-corrected f0, distortion partial
-    sums) — the whole-track trend stack runs on the HOST at poll time."""
-    from aegis_tpu_torch.core.tables import tables_from_numpy
-    from aegis_tpu_torch.engine.turbo import _tile_analyze, _tile_mel_power
-
-    tile, halo = turbo.tile_frames, turbo.halo_frames
-    rows_spec = _GTR_ROWS if financial else _V1_ROWS
-    tables = tables_from_numpy(audio, pyin_cfg, device)
-    amin = 1e-10
-
-    def program(slab16: torch.Tensor, scale: float, rake_sens: float,
-                ref_power: torch.Tensor):
-        with phase("aegis.live_tile"):
-            slab = (slab16.to(torch.float32) * scale)[None]      # (1, span)
-            mel_power = _tile_mel_power(slab, audio, pyin_cfg, turbo, tables)
-            # causal running reference over tile INTERIORS (halo frames are
-            # interior frames of neighboring tiles)
-            interior_max = torch.amax(mel_power[:, halo: halo + tile])
-            new_ref = torch.maximum(ref_power, interior_max)
-            mel_db = 10.0 * torch.log10(torch.clamp_min(mel_power, amin))
-            mel_db = mel_db - 10.0 * torch.log10(torch.clamp_min(new_ref, amin))
-            mel_db = torch.clamp_min(mel_db, -80.0)
-            out = _tile_analyze(slab, mel_db, rake_sens, audio, pyin_cfg,
-                                turbo, tables, financial=financial,
-                                use_guitar_filters=use_guitar_filters)
-            cols = [out[k][0].to(torch.float32)[:, None] for k in rows_spec]
-            return torch.cat(cols, dim=1), new_ref
-
-    return program
+                  device: torch.device = torch.device("cpu")) -> _TileProgram:
+    """The live tile program of one (config, device), built once."""
+    return _TileProgram(audio, pyin_cfg, turbo, financial,
+                        use_guitar_filters, device)
 
 
 class StreamingTranscriber:

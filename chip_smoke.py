@@ -10,7 +10,7 @@ live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
 the self-verification loops, the REST server, the PitchNet trainer, the
 validation tools, the Streamlit apps, the multi-device paths, the finer
-pitch grids and the warm-up command, in thirty-one phases; each raises on
+pitch grids and the warm-up command, in thirty-two phases; each raises on
 failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
@@ -78,9 +78,25 @@ failure:
                wall ms a tile (median, p95), the ingest margin, the audio
                seconds from a note's onset to the first poll that shows it,
                poll_events() ms, finalize() ms; device-busy ms and launches
-               a tile (torch.profiler over eight tiles); the kernels at the
+               a tile (torch.profiler over eight tiles, whose kernel events
+               must show one forward and one of each backtrace kernel a
+               tile, none a poly tile); the kernels at the
                live shapes against their plain versions and the one-CTA
                variant, with bound and serial floor.
+ 13a. live graph — every live tile replays one captured CUDA graph: over
+               a 20 s session (v1 at 44 100 and 22 050 Hz, financial at
+               44 100 Hz, v1 at n = 900) each tile's rows and running
+               reference bitwise those of the tile program's body run
+               eagerly, each kernel counted once a tile at its shape, a
+               second session bitwise the first and capturing nothing; two
+               10 s sessions interleaved tile by tile and fed from two
+               threads at once give what each gives alone; sessions at rake
+               0.3 and 0.9 replay one graph, each bitwise the eager body at
+               its rake; a new program captured while another thread runs a
+               REST analyze and eager tiles, both staying equal to what
+               they give alone.  Prints the tile wall ms replayed and
+               eager, and a replay's host launch ms and device ms (v1,
+               44 100 Hz).
  14. poly parts — the polyphonic device half on the card, at 22 050 and
                44 100 Hz on the CQT of a chord clip: the voice peel against
                its NumPy oracle (picks equal on >= 0.999 of entries,
@@ -227,8 +243,10 @@ failure:
                events, stems, markup or results equal its facade's (or the
                direct call's) on the same input, and launch what it
                launches; both kernels are held to their plain versions on
-               the apps' own inputs at every shape the apps launched (the
-               phase fails on a launched shape it did not check).  Each
+               the apps' own inputs at every shape the apps launched (a
+               replayed live tile's through its program's eager body on
+               the first tile; the phase fails on a launched shape it did
+               not check).  Each
                rerun's wall ms (warm median of 5, CUDA events, where the
                rerun repeats), device busy ms and launches (profiled) and
                its facade's ms, beside the card's name and power limit.
@@ -1035,11 +1053,12 @@ def phase_live_kernels(dev, tracks, errs) -> dict:
 
 
 def live_transcriber(dev, sr: int, tile: int, halo: int, financial: bool,
-                     pyin_cfg: PyinConfig = CFG):
+                     pyin_cfg: PyinConfig = CFG, rake: float = 0.6):
     kw = {"financial": True} if financial else {"confidence_threshold": 0.5}
     return StreamingTranscriber(audio=AudioConfig(sample_rate=sr),
                                 pyin_cfg=pyin_cfg, tile_frames=tile,
-                                halo_frames=halo, device=dev, **kw)
+                                halo_frames=halo, device=dev,
+                                rake_sensitivity=rake, **kw)
 
 
 def live_session(dev, y, sr: int, tile: int, halo: int, financial: bool,
@@ -1216,12 +1235,23 @@ def profile_kernels(fn, n: int = 1):
     return kernels, host_ms
 
 
+# the decode's device kernels, as the benchmark's readers name them
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "bench_torch", "metrics",
+                       "viterbi_kernels.json")) as _f:
+    VITERBI_KERNELS = json.load(_f)["kernels"]
+
+
 def live_profile(dev, y, sr: int, tile: int, halo: int, financial: bool,
                  tile_wall_ms: float, n: int = 8, rt=None) -> dict:
     """Device-busy ms and launches a tile: torch.profiler over ``n`` warm
     tiles, each fed as exactly one tile's samples.  The idle share is taken
     against ``tile_wall_ms``, the session's median without the profiler
-    (tracing every launch several times over slows the host)."""
+    (tracing every launch several times over slows the host).  Raises
+    unless the profiler's own kernel events show each tile running a
+    forward kernel and each backtrace kernel exactly once (a replayed
+    graph's launches are counted from its capture, not measured), or no
+    decode kernel for a poly tile."""
     poly = rt is not None
     if rt is None:
         rt = live_transcriber(dev, sr, tile, halo, financial)
@@ -1238,6 +1268,13 @@ def live_profile(dev, y, sr: int, tile: int, halo: int, financial: bool,
         pos += tile_samp
 
     kernels, wall_ms = profile_kernels(one_tile, n)
+    viterbi = {k: sum(c for name, (_, c) in kernels.items() if k in name) / n
+               for k in VITERBI_KERNELS}
+    a_tile = {"forward": sum(c for k, c in viterbi.items() if "_fwd" in k),
+              **{k: c for k, c in viterbi.items() if "_back" in k}}
+    if set(a_tile.values()) != {0 if poly else 1}:
+        raise AssertionError(f"live profile {sr} Hz ({tile}, {halo}): "
+                             f"decode kernels a tile {a_tile}")
     busy_ms = sum(us for us, _ in kernels.values()) / 1000.0 / n
     top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     return {"phase": "profile", "what": "live_tile", "sr": sr, "tile": tile,
@@ -1247,6 +1284,7 @@ def live_profile(dev, y, sr: int, tile: int, halo: int, financial: bool,
             "device_busy_ms_a_tile": busy_ms,
             "kernel_launches_a_tile":
                 sum(c for _, c in kernels.values()) / n,
+            "decode_kernels_a_tile_traced": a_tile,
             "tile_wall_ms_median_of_the_session": tile_wall_ms,
             "idle_share": 1.0 - busy_ms / tile_wall_ms,
             "top_device_kernels_ms_a_tile": [
@@ -1284,6 +1322,323 @@ def phase_times_live(dev, tracks, live_shapes, all_stats) -> dict:
               "picked_variant": list(picked), "median_ms": row,
               "card": CARD["nvidia_smi"]})
     return kernel_ms
+
+
+# --------------------------------------------------------------------------
+# The live tile program as one CUDA graph a tile
+# --------------------------------------------------------------------------
+
+# (name, rate, financial, pyin config): every session of one of these keys
+# replays one captured graph a tile; n = 900 takes the wide forward kernel
+LIVE_GRAPH_CASES = (("v1_44100", 44100, False, CFG),
+                    ("v1_22050", 22050, False, CFG),
+                    ("financial_44100", 44100, True, CFG),
+                    ("v1_n900_44100", 44100, False, PyinConfig(resolution=0.05)))
+
+
+def tile_pieces(y, rt) -> list:
+    """``y`` cut so that each piece, fed in turn, completes one tile."""
+    ts, ctx = rt._tile_samp, rt._ctx
+    n = (len(y) - ts - ctx) // ts + 1
+    return [y[:ts + ctx]] + [y[ts + ctx + (k - 1) * ts:ts + ctx + k * ts]
+                             for k in range(1, n)]
+
+
+def feed_tile(rt, piece):
+    """One tile of a session: (its rows, the running reference after it,
+    the feed's wall ms)."""
+    t0 = time.perf_counter()
+    if rt.feed(piece) != 1:
+        raise AssertionError("live graph: a piece did not complete one tile")
+    ms = 1e3 * (time.perf_counter() - t0)
+    return rt._rows[-1], rt._ref_power.cpu().numpy().copy(), ms
+
+
+def graph_session(dev, y, sr: int, financial: bool = False,
+                  pyin_cfg: PyinConfig = CFG, rake: float = 0.6) -> list:
+    """A live session on the card fed a tile at a time: each tile's (rows,
+    reference, wall ms)."""
+    rt = live_transcriber(dev, sr, 24, 8, financial, pyin_cfg, rake)
+    return [feed_tile(rt, p) for p in tile_pieces(y, rt)]
+
+
+def eager_tiles(dev, y, sr: int, financial: bool = False,
+                pyin_cfg: PyinConfig = CFG, rake: float = 0.6) -> list:
+    """The same tiles through the tile program's body run eagerly on the
+    card (no graph): each tile's (rows, reference, wall ms)."""
+    from aegis_tpu_torch.core.analyze import quantize_pcm16, upload
+
+    rt = live_transcriber(dev, sr, 24, 8, financial, pyin_cfg, rake)
+    program = tile_program(rt)
+    ts, ctx = rt._tile_samp, rt._ctx
+    padded = np.concatenate([np.zeros(ctx, np.float32), y])
+    ref = torch.zeros((), dtype=torch.float32, device=dev)
+    out = []
+    for k in range(len(tile_pieces(y, rt))):
+        t0 = time.perf_counter()
+        slab16, scale = quantize_pcm16(padded[k * ts:k * ts + 2 * ctx + ts])
+        rows, ref = program.body(
+            upload(slab16, dev),
+            torch.tensor(np.float32(scale), device=dev),
+            torch.tensor(rake, dtype=torch.float32, device=dev), ref)
+        rows = rows.cpu().numpy()
+        out.append((rows, ref.cpu().numpy().copy(),
+                    1e3 * (time.perf_counter() - t0)))
+    return out
+
+
+def same_tiles(a: list, b: list) -> bool:
+    """Rows and references bitwise equal, tile for tile (NaN f0 too)."""
+    return len(a) == len(b) > 0 and all(
+        ra.tobytes() == rb.tobytes() and fa.tobytes() == fb.tobytes()
+        for (ra, fa, _), (rb, fb, _) in zip(a, b))
+
+
+def interleaved_sessions(dev, ys, sr: int) -> list:
+    """Sessions of one key, one on each of ``ys``, fed a tile each in turn:
+    each session's tiles."""
+    rts = [live_transcriber(dev, sr, 24, 8, False) for _ in ys]
+    pieces = [tile_pieces(y, rt) for y, rt in zip(ys, rts)]
+    got = [[] for _ in ys]
+    for k in range(max(len(p) for p in pieces)):
+        for rt, p, g in zip(rts, pieces, got):
+            if k < len(p):
+                g.append(feed_tile(rt, p[k]))
+    return got
+
+
+def threaded_sessions(dev, ys, sr: int, timeout_s: float = 300.0) -> list:
+    """Sessions of one key, one on each of ``ys``, each fed by its own
+    thread at once (the interpreter switching threads every 10 us): each
+    session's tiles."""
+    import threading
+
+    got = [None] * len(ys)
+
+    def run(i):
+        got[i] = graph_session(dev, ys[i], sr)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(ys))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout_s)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("live graph: a feeding thread hung")
+    finally:
+        sys.setswitchinterval(interval)
+    return got
+
+
+def tile_program(rt):
+    """The live tile program a session runs."""
+    from aegis_tpu_torch.engine import realtime
+
+    return realtime._tile_program(rt.audio, rt.pyin_cfg, rt.turbo,
+                                  rt.financial, rt.use_guitar_filters,
+                                  rt.device)
+
+
+def live_graph(dev, sr: int, financial: bool = False,
+               pyin_cfg: PyinConfig = CFG):
+    """The captured graph of one key's tile program (None before its first
+    tile on the card)."""
+    return tile_program(live_transcriber(dev, sr, 24, 8, financial,
+                                         pyin_cfg))._graph
+
+
+def rake_sessions(dev, y, sr: int, rakes=(0.3, 0.9)) -> dict:
+    """Sessions of one key at two rake sensitivities: whether both
+    replayed one graph, each bitwise the eager body at its rake, and their
+    rake masks apart (the rake is read from the graph's input, not fixed
+    in it)."""
+    from aegis_tpu_torch.core.analyze import _V1_ROWS
+
+    graphs, got = [], {}
+    for rake in rakes:
+        got[rake] = graph_session(dev, y, sr, rake=rake)
+        graphs.append(live_graph(dev, sr))
+        if not same_tiles(got[rake], eager_tiles(dev, y, sr, rake=rake)):
+            return {"rakes": list(rakes), "bitwise_eager_at": rake}
+    col = _V1_ROWS.index("rake_mask")
+    masks = [np.concatenate([r for r, *_ in got[rake]])[:, col]
+             for rake in rakes]
+    return {"rakes": list(rakes), "bitwise_eager_at": "every rake",
+            "one_graph": all(g is graphs[0] for g in graphs),
+            "rake_masks_differ": bool((masks[0] != masks[1]).any())}
+
+
+def capture_beside_work(dev, n_tiles: int = 12,
+                        timeout_s: float = 300.0) -> dict:
+    """A new tile program captured while another thread runs what a REST
+    analyze runs (``AegisEngine.audio_to_midi`` and ``extract_events``,
+    fused) and eager tiles of another program, as the server's handler
+    threads do beside a live session's first tile.  Returns whether the
+    other thread's work overlapped the capture and stayed equal to what
+    it gives alone (events equal; eager rows bitwise), and whether the new
+    graph's first ``n_tiles`` tiles are bitwise its own body's."""
+    import threading
+
+    from aegis_tpu_torch.core.analyze import quantize_pcm16, upload
+    from aegis_tpu_torch.engine import realtime
+    from aegis_tpu_torch.engine.engine import AegisEngine
+
+    y = generate_bench_track(5.0, sr=22050)
+    engine = AegisEngine(sample_rate=22050, device=dev)
+
+    def rest():
+        return [(e["note"], e["start"], e["end"])
+                for e in engine.extract_events(engine.audio_to_midi(y))]
+
+    want = (rest(), eager_tiles(dev, y, 22050, True))
+    rt = live_transcriber(dev, 44100, 24, 8, False)
+    fresh = realtime._TileProgram(rt.audio, rt.pyin_cfg, rt.turbo, False,
+                                  True, dev)
+    done, windows, equal = threading.Event(), [], []
+
+    def work():
+        while not done.is_set():
+            t0 = time.perf_counter()
+            got = (rest(), eager_tiles(dev, y, 22050, True))
+            windows.append((t0, time.perf_counter()))
+            equal.append(got[0] == want[0] and same_tiles(got[1], want[1]))
+
+    ts, ctx = rt._tile_samp, rt._ctx
+    padded = np.concatenate([np.zeros(ctx, np.float32),
+                             generate_bench_track(10.0, sr=44100)])
+    slabs = [quantize_pcm16(padded[k * ts:k * ts + 2 * ctx + ts])
+             for k in range(n_tiles)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    thread = threading.Thread(target=work)
+    thread.start()
+    try:
+        while not windows and thread.is_alive():
+            time.sleep(0.01)
+        ref = torch.zeros((), dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        replayed = [fresh(upload(s16, dev), float(np.float32(sc)), 0.6, ref)
+                    for s16, sc in slabs[:1]]
+        capture = (t0, time.perf_counter())
+        replayed += [fresh(upload(s16, dev), float(np.float32(sc)), 0.6, ref)
+                     for s16, sc in slabs[1:]]
+        replayed = [rows.cpu().numpy() for rows, _ in replayed]
+        n_before = len(windows)
+        while len(windows) < n_before + 1 and thread.is_alive():
+            time.sleep(0.01)
+    finally:
+        done.set()
+        thread.join(timeout_s)
+        sys.setswitchinterval(interval)
+    if thread.is_alive():
+        raise AssertionError("live graph: the working thread hung")
+    ref = torch.zeros((), dtype=torch.float32, device=dev)
+    eager = []
+    for s16, sc in slabs:
+        rows, ref = fresh.body(upload(s16, dev),
+                               torch.tensor(np.float32(sc), device=dev),
+                               torch.tensor(0.6, device=dev), ref)
+        eager.append(rows.cpu().numpy())
+    return {"captured": fresh._graph is not None,
+            "work_runs": len(windows),
+            "work_overlapped_capture": any(s < capture[1] and e > capture[0]
+                                           for s, e in windows),
+            "work_equal_alone": len(equal) > 0 and all(equal),
+            "capture_ms": 1e3 * (capture[1] - capture[0]),
+            "replays_bitwise_body": all(a.tobytes() == b.tobytes()
+                                        for a, b in zip(replayed, eager))}
+
+
+def replay_ms(graph, n: int = 20) -> dict:
+    """Medians over ``n`` replays of a captured tile graph alone: the host
+    ms of the launch call, and the device ms (CUDA events) from the
+    graph's first node to its last.  A spin kernel queued first keeps
+    the device busy until the whole graph has been launched."""
+    host, device = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)      # ~0.1 s at the card's clock
+        start.record()
+        t0 = time.perf_counter()
+        graph.graph.replay()
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end))
+    return {"replay_launch_host_ms_median": float(np.median(host)),
+            "replay_device_ms_median": float(np.median(device))}
+
+
+def phase_live_graph(dev) -> None:
+    """Every tile replays one captured graph: rows and reference bitwise
+    the eager body's over a 20 s session at each LIVE_GRAPH_CASES key,
+    each kernel counted once a replay; sessions interleaved tile by tile
+    and fed from two threads at once give what they give alone; a second
+    session of a key captures nothing.  Prints the tile wall ms of both."""
+    for name, sr, financial, pyin_cfg in LIVE_GRAPH_CASES:
+        y = generate_bench_track(20.0, sr=sr)
+        reset_counts()
+        graph = graph_session(dev, y, sr, financial, pyin_cfg)
+        torch.cuda.synchronize()
+        n = pyin_cfg.n_pitch_bins
+        w = tables_from_numpy(AudioConfig(sample_rate=sr), pyin_cfg,
+                              dev).half_width
+        want = {"viterbi_fwd": {(1, 40, n, w): len(graph)},
+                "viterbi_back": {(1, 40, n): len(graph)}}
+        if pyin_cuda.SHAPES != want:
+            raise AssertionError(f"live graph {name}: launches "
+                                 f"{pyin_cuda.SHAPES}, want {want}")
+        captured = live_graph(dev, sr, financial, pyin_cfg)
+        eager = eager_tiles(dev, y, sr, financial, pyin_cfg)
+        again = graph_session(dev, y, sr, financial, pyin_cfg)
+        equal = same_tiles(graph, eager)
+        row = {"phase": "live_graph", "case": name, "tiles": len(graph),
+               "rows_and_ref_bitwise_eager": equal,
+               "second_session_bitwise": same_tiles(again, graph),
+               "captured": captured is not None,
+               "second_session_captured_nothing":
+                   live_graph(dev, sr, financial, pyin_cfg) is captured,
+               "tile_wall_ms_first": graph[0][2],
+               "graph_tile_wall_ms_median": float(np.median(
+                   [ms for *_, ms in again])),
+               "eager_tile_wall_ms_median": float(np.median(
+                   [ms for *_, ms in eager[1:]])),
+               "card": CARD["nvidia_smi"]}
+        if name == "v1_44100":
+            row.update(replay_ms(captured))
+        emit(row)
+        if not (equal and row["second_session_bitwise"] and row["captured"]
+                and row["second_session_captured_nothing"]):
+            raise AssertionError(f"live graph {name}: {row}")
+    ys = [generate_bench_track(10.0, sr=44100, seed=s) for s in (42, 43)]
+    alone = [graph_session(dev, y, 44100) for y in ys]
+    inter = interleaved_sessions(dev, ys, 44100)
+    threads = threaded_sessions(dev, ys, 44100)
+    row = {"phase": "live_graph", "case": "two_sessions_44100",
+           "interleaved_bitwise_alone": [same_tiles(a, b)
+                                         for a, b in zip(inter, alone)],
+           "threads_bitwise_alone": [same_tiles(a, b)
+                                     for a, b in zip(threads, alone)]}
+    emit(row)
+    if not all(row["interleaved_bitwise_alone"] + row["threads_bitwise_alone"]):
+        raise AssertionError(f"live graph: {row}")
+    row = {"phase": "live_graph", "case": "two_rakes_22050",
+           **rake_sessions(dev, generate_bench_track(10.0, sr=22050), 22050)}
+    emit(row)
+    if not (row.get("one_graph") and row["rake_masks_differ"]):
+        raise AssertionError(f"live graph: {row}")
+    row = {"phase": "live_graph", "case": "capture_beside_work",
+           **capture_beside_work(dev)}
+    emit(row)
+    if not all(row[k] for k in ("captured", "work_overlapped_capture",
+                                "work_equal_alone", "replays_bitwise_body")):
+        raise AssertionError(f"live graph: {row}")
 
 
 # --------------------------------------------------------------------------
@@ -3247,24 +3602,48 @@ class DecodeInputs:
     forward shape (B, T, n, w) that any path launches: the app's own
     observations, for the comparison with the plain versions afterwards.
     Every launch of both kernels goes through
-    ``pyin_cuda.viterbi_decode_cuda`` (``core/pyin.py::_decode_states``)."""
+    ``pyin_cuda.viterbi_decode_cuda`` (``core/pyin.py::_decode_states``),
+    but a live tile on the card replays a captured graph, which runs no
+    Python: the first tile of each tile program is also run through its
+    eager body on the same inputs (launches recorded, not counted; 13a
+    holds the replay bitwise to that body) to keep its decode's inputs."""
 
     def __init__(self):
         self.by_shape: dict = {}
+        self._programs: set = set()
 
     def __enter__(self):
+        from aegis_tpu_torch.engine.realtime import _TileProgram
+
         self._real = real = pyin_cuda.viterbi_decode_cuda
+        self._tile = tile = _TileProgram.__call__
 
         def keep(lo_v, lo_u, band, n, w, log_stay, log_switch, tab=None):
             self.by_shape.setdefault((lo_v.shape[0], lo_v.shape[1], n, w),
                                      (lo_v, lo_u, band, tab))
             return real(lo_v, lo_u, band, n, w, log_stay, log_switch, tab)
 
+        def keep_tile(program, slab16, scale, rake_sens, ref_power):
+            ref_in = ref_power.clone()
+            out = tile(program, slab16, scale, rake_sens, ref_power)
+            if (program._graph is not None
+                    and id(program) not in self._programs):
+                self._programs.add(id(program))
+                f32 = dict(dtype=torch.float32, device=slab16.device)
+                with pyin_cuda.recording_launches():
+                    program.body(slab16, torch.tensor(scale, **f32),
+                                 torch.tensor(rake_sens, **f32), ref_in)
+            return out
+
         pyin_cuda.viterbi_decode_cuda = keep
+        _TileProgram.__call__ = keep_tile
         return self
 
     def __exit__(self, *exc):
+        from aegis_tpu_torch.engine.realtime import _TileProgram
+
         pyin_cuda.viterbi_decode_cuda = self._real
+        _TileProgram.__call__ = self._tile
         return False
 
 
@@ -4312,6 +4691,7 @@ def main() -> int:
                        per_call)
     live_ms = timed("times_live", phase_times_live, dev, tracks, live_shapes,
                     live_stats)
+    timed("live_graph", phase_live_graph, dev)
 
     # the polyphonic stack: no hand kernel (its paths run no pYIN), so every
     # phase also checks that neither Viterbi kernel was launched

@@ -374,6 +374,81 @@ def test_live_session_launches_each_kernel_once_a_tile(cuda, financial):
             assert same.mean() >= 0.99, (k, same.mean())
 
 
+# ------------------------------------------- the live tile program's graph
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["v1_44100", "v1_22050", "financial_44100",
+                                  "v1_n900_44100"])
+def test_live_graph_replays_equal_the_eager_body(cuda, case):
+    """A 20 s session fed a tile at a time replays one captured graph a
+    tile: every tile's rows and running reference bitwise those of the
+    tile program's body run eagerly on the same slabs, each kernel counted
+    once a tile at its shape (the warm-up and the capture count nothing)."""
+    from aegis_tpu_torch.config import AudioConfig
+    from aegis_tpu_torch.core.tables import tables_from_numpy
+    from aegis_tpu_torch.tools.signal_gen import generate_bench_track
+
+    cs = _chip_smoke()
+    _, sr, financial, cfg = next(c for c in cs.LIVE_GRAPH_CASES
+                                 if c[0] == case)
+    y = generate_bench_track(20.0, sr=sr)
+    cs.reset_counts()
+    graph = cs.graph_session(cuda, y, sr, financial, cfg)
+    w = tables_from_numpy(AudioConfig(sample_rate=sr), cfg, cuda).half_width
+    n = cfg.n_pitch_bins
+    assert pyin_cuda.SHAPES == {"viterbi_fwd": {(1, 40, n, w): len(graph)},
+                                "viterbi_back": {(1, 40, n): len(graph)}}
+    assert cs.live_graph(cuda, sr, financial, cfg) is not None
+    assert cs.same_tiles(graph, cs.eager_tiles(cuda, y, sr, financial, cfg))
+
+
+@pytest.mark.cuda
+def test_live_graph_sessions_interleaved_or_threaded_equal_alone(cuda):
+    """Two sessions of one key share the graph's static tensors: fed a
+    tile each in turn, or from two threads at once, each gives bitwise
+    the tiles it gives alone."""
+    from aegis_tpu_torch.tools.signal_gen import generate_bench_track
+
+    cs = _chip_smoke()
+    ys = [generate_bench_track(10.0, sr=44100, seed=s) for s in (42, 43)]
+    alone = [cs.graph_session(cuda, y, 44100) for y in ys]
+    assert not cs.same_tiles(alone[0], alone[1])
+    for got in (cs.interleaved_sessions(cuda, ys, 44100),
+                cs.threaded_sessions(cuda, ys, 44100)):
+        assert all(cs.same_tiles(g, a) for g, a in zip(got, alone))
+
+
+@pytest.mark.cuda
+def test_live_graph_is_captured_once_a_key(cuda):
+    """A second session of a key replays the first one's graph; sessions
+    at rake 0.3 and 0.9 replay that one graph too, each bitwise the eager
+    body at its rake, with rake masks that differ."""
+    from aegis_tpu_torch.tools.signal_gen import generate_bench_track
+
+    cs = _chip_smoke()
+    y = generate_bench_track(3.0, sr=22050)
+    cs.graph_session(cuda, y, 22050)
+    first = cs.live_graph(cuda, 22050)
+    cs.graph_session(cuda, y, 22050)
+    assert first is not None and cs.live_graph(cuda, 22050) is first
+    got = cs.rake_sessions(cuda, generate_bench_track(10.0, sr=22050), 22050)
+    assert got["bitwise_eager_at"] == "every rake", got
+    assert got["one_graph"] and got["rake_masks_differ"], got
+    assert cs.live_graph(cuda, 22050) is first
+
+
+@pytest.mark.cuda
+def test_live_graph_captures_beside_rest_work(cuda):
+    """A new tile program captured while another thread runs a REST
+    analyze and eager tiles: the other thread's work overlaps the capture
+    and gives what it gives alone, and the new graph replays bitwise its
+    body."""
+    got = _chip_smoke().capture_beside_work(cuda)
+    assert all(got[k] for k in ("captured", "work_overlapped_capture",
+                                "work_equal_alone",
+                                "replays_bitwise_body")), got
+
+
 # ------------------------------------------------- the polyphonic programs
 
 @pytest.mark.cuda

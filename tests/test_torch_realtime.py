@@ -34,7 +34,8 @@ from aegis_tpu_torch.engine.realtime import (StreamingPolyTranscriber,
 from aegis_tpu_torch.core.poly import unpack_cqt_f16
 from aegis_tpu_torch.engine.poly import AegisPolyEngine
 from aegis_tpu_torch.engine.turbo import run_analyze_turbo
-from aegis_tpu_torch.tools.signal_gen import (generate_chord_progression,
+from aegis_tpu_torch.tools.signal_gen import (generate_bench_track,
+                                              generate_chord_progression,
                                               generate_test_track,
                                               karplus_strong)
 from aegis_tpu_torch.verify.metrics import events_to_seconds, note_event_f1
@@ -265,6 +266,114 @@ def test_finalize_is_terminal_and_idempotent():
     assert rt._n_fed == len(y)
     with pytest.raises(RuntimeError):
         rt.feed(np.zeros(1000, np.float32))
+
+
+def _float_scale_program(audio, pyin_cfg, turbo, financial):
+    """The live tile program as it ran before its body took the dequant
+    scale and the rake sensitivity as 0-d tensors: both Python floats, the
+    same ops."""
+    from aegis_tpu_torch.core.analyze import _GTR_ROWS, _V1_ROWS
+    from aegis_tpu_torch.core.tables import tables_from_numpy
+    from aegis_tpu_torch.engine.turbo import _tile_analyze, _tile_mel_power
+
+    tile, halo = turbo.tile_frames, turbo.halo_frames
+    tables = tables_from_numpy(audio, pyin_cfg, torch.device("cpu"))
+
+    def program(slab16, scale, rake_sens, ref_power):
+        slab = (slab16.to(torch.float32) * scale)[None]
+        mel_power = _tile_mel_power(slab, audio, pyin_cfg, turbo, tables)
+        interior_max = torch.amax(mel_power[:, halo: halo + tile])
+        new_ref = torch.maximum(ref_power, interior_max)
+        mel_db = 10.0 * torch.log10(torch.clamp_min(mel_power, 1e-10))
+        mel_db = mel_db - 10.0 * torch.log10(torch.clamp_min(new_ref, 1e-10))
+        mel_db = torch.clamp_min(mel_db, -80.0)
+        out = _tile_analyze(slab, mel_db, rake_sens, audio, pyin_cfg, turbo,
+                            tables, financial=financial)
+        cols = [out[k][0].to(torch.float32)[:, None]
+                for k in (_GTR_ROWS if financial else _V1_ROWS)]
+        return torch.cat(cols, dim=1), new_ref
+
+    return program
+
+
+def _session_against_float_program(y, sr, financial, rake=0.6):
+    """A session fed ``y`` a tile at a time, every tile's rows and running
+    reference held bitwise to the float-scale program's on the same slabs:
+    the session's rows."""
+    from aegis_tpu_torch.core.analyze import quantize_pcm16
+
+    audio = AudioConfig(sample_rate=sr)
+    rt = StreamingTranscriber(audio=audio, financial=financial,
+                              rake_sensitivity=rake, device="cpu")
+    ref_program = _float_scale_program(audio, rt.pyin_cfg, rt.turbo,
+                                       financial)
+    ts, ctx = rt._tile_samp, rt._ctx
+    padded = np.concatenate([np.zeros(ctx, np.float32), y])
+    ref = torch.zeros((), dtype=torch.float32)
+    n_tiles = (len(y) - ts - ctx) // ts
+    assert rt.feed(y[: ts + ctx]) == 1
+    for k in range(n_tiles):
+        if k:
+            assert rt.feed(y[ts + ctx + (k - 1) * ts: ts + ctx + k * ts]) == 1
+        slab16, scale = quantize_pcm16(padded[k * ts: k * ts + 2 * ctx + ts])
+        rows, ref = ref_program(torch.from_numpy(slab16),
+                                float(np.float32(scale)), rake, ref)
+        assert rt._rows[k].tobytes() == rows.numpy().tobytes(), k
+        assert rt._ref_power.numpy().tobytes() == ref.numpy().tobytes(), k
+    assert n_tiles >= 15 and float(ref) > 0
+    return np.concatenate(rt._rows)
+
+
+@pytest.mark.parametrize("sr", [22050, 44100])
+@pytest.mark.parametrize("financial", [False, True], ids=["v1", "financial"])
+def test_tile_body_with_a_tensor_scale_equals_the_float_scale_program(
+        financial, sr):
+    """A 20 s session fed a tile at a time: every tile's rows and running
+    reference bitwise those of the program that took the scale as a
+    float, run on the same slabs."""
+    _session_against_float_program(generate_bench_track(20.0, sr=sr), sr,
+                                   financial)
+
+
+def test_tile_body_with_a_tensor_rake_equals_the_float_rake_program():
+    """The rake sensitivity enters the body as a 0-d float32 tensor: at
+    0.3, at 0.9 and at a value that a float32 rounds onto a mel share (64 / 128),
+    a 10 s session's rows bitwise those of the program that took the rake
+    as a float; the rake masks of 0.3 and 0.9 differ, so the value is
+    read, not fixed."""
+    from aegis_tpu_torch.core.analyze import _V1_ROWS
+
+    y = generate_bench_track(10.0, sr=22050)
+    rows = {rake: _session_against_float_program(y, 22050, False, rake)
+            for rake in (0.3, 0.9, 0.4999999999)}
+    col = _V1_ROWS.index("rake_mask")
+    assert (rows[0.3][:, col] != rows[0.9][:, col]).any()
+
+
+def test_tile_program_keeps_its_signature_and_cache():
+    """One program per (config, device), built once; the body takes the
+    scale and the rake as 0-d tensors and the call floats."""
+    import inspect
+
+    from aegis_tpu_torch.engine import realtime
+
+    assert list(inspect.signature(realtime._tile_program).parameters) == [
+        "audio", "pyin_cfg", "turbo", "financial", "use_guitar_filters",
+        "device"]
+    args = (AUDIO, PyinConfig(), TurboConfig(tile_frames=24, halo_frames=8),
+            False, True, torch.device("cpu"))
+    program = realtime._tile_program(*args)
+    assert realtime._tile_program(*args) is program
+    assert realtime._tile_program.cache_info().maxsize == 8
+    span = 2 * (8 * 512 + 1024) + 24 * 512
+    slab16 = torch.zeros(span, dtype=torch.int16)
+    zero = torch.zeros((), dtype=torch.float32)
+    rows, new_ref = program(slab16, 0.0, 0.6, zero)
+    body_rows, body_ref = program.body(slab16, zero, torch.tensor(0.6), zero)
+    assert rows.shape == (24, len(program.rows_spec))
+    assert rows.numpy().tobytes() == body_rows.numpy().tobytes()
+    assert new_ref.numpy().tobytes() == body_ref.numpy().tobytes()
+    assert program._graph is None     # the CPU captures nothing
 
 
 def test_streaming_financial_incremental_trend():
