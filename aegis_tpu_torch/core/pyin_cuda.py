@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from aegis_tpu_torch.core.tables import LOG_FLOOR, band_class_table
+from aegis_tpu_torch.utils.prof import phase, recording
 
 LAUNCHES = {"viterbi_fwd": 0, "viterbi_back": 0}
 LAST_BATCH = {"viterbi_fwd": 0, "viterbi_back": 0}
@@ -101,6 +102,12 @@ class ForwardLaunch:
     warps: int
     smem_bytes: int
     table_in_smem: bool
+
+    @property
+    def kernel(self) -> str:
+        """The forward kernel this launch runs, by its name in
+        csrc/viterbi.cu."""
+        return "viterbi_fwd_wide_kernel" if self.wide else "viterbi_fwd_kernel"
 
 
 def forward_launch(n: int, w: int, tile: int, cluster: int,
@@ -453,14 +460,16 @@ def _launch_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
 
 def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
                 band: torch.Tensor, n: int, w: int, log_stay: float,
-                log_switch: float, tab: torch.Tensor | None = None
+                log_switch: float, tab: torch.Tensor | None = None,
+                launch: ForwardLaunch | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward pass: (psi_v, psi_u, delta_last).  A CPU tensor runs the
     plain version; a CUDA tensor launches the kernel or raises.
 
     ``tab`` is the band's class table (``Tables.band_tab``) on the same
     device; without it the table is built from ``band`` on the host, which
-    waits for the device.
+    waits for the device.  ``launch`` is the variant to launch, where the
+    caller has picked it already (``forward_launch_for``).
 
     What the kernel takes: any n >= 1 states and band half-width w >= 0
     whose double-buffered delta fits the card's shared memory
@@ -491,10 +500,8 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
             f"at 44 100 Hz, hop 512), got T={T}: past that the out-of-band "
             "rule is no longer exact; decode long tracks in slabs "
             "(AegisEngine turbo_mode=\"stream\")")
-    max_smem = max_shared_memory(dev)
-    launch = pick_forward_variant(
-        B, torch.cuda.get_device_properties(dev).multi_processor_count, n, w,
-        max_smem)
+    if launch is None:
+        launch = forward_launch_for(log_obs_v, n, w)
     _check("log_obs_v", log_obs_v, torch.float32, (B, T, n), dev)
     _check("log_obs_u", log_obs_u, torch.float32, (B, T), dev)
     _check("band", band, torch.float32, (n, 2 * w + 1), dev)
@@ -504,7 +511,7 @@ def viterbi_fwd(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
     _check("tab", tab, torch.float32, (n if n < 2 * w + 1 else w + 1, w + 1),
            dev)
     out = _launch_fwd(log_obs_v, log_obs_u, tab, n, w, log_stay, log_switch,
-                      launch.tile, launch.cluster, max_smem)
+                      launch.tile, launch.cluster, max_shared_memory(dev))
     _count("viterbi_fwd", (B, T, n, w))
     return out
 
@@ -542,13 +549,51 @@ def viterbi_back(delta_last: torch.Tensor, psi_v: torch.Tensor,
     return states
 
 
+def forward_launch_for(log_obs_v: torch.Tensor, n: int,
+                       w: int) -> ForwardLaunch:
+    """The forward launch for the B sequences of ``log_obs_v`` (a CUDA
+    tensor) on its card: ``pick_forward_variant`` at the card's SMs and
+    shared memory."""
+    dev = log_obs_v.device
+    return pick_forward_variant(
+        log_obs_v.shape[0],
+        torch.cuda.get_device_properties(dev).multi_processor_count, n, w,
+        max_shared_memory(dev))
+
+
 def viterbi_decode_cuda(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
                         band: torch.Tensor, n: int, w: int, log_stay: float,
                         log_switch: float,
                         tab: torch.Tensor | None = None) -> torch.Tensor:
     """Banded Viterbi decode, forward pass then backtrace: states (B, T)
     int32 in [0, 2n), voiced iff < n.  Same semantics as the dense scan
-    aegis_tpu/core/pyin.py::viterbi_decode, ties included."""
-    psi_v, psi_u, delta_last = viterbi_fwd(log_obs_v, log_obs_u, band, n, w,
-                                           log_stay, log_switch, tab)
-    return viterbi_back(delta_last, psi_v, psi_u)
+    aegis_tpu/core/pyin.py::viterbi_decode, ties included.
+
+    While a profiler runs, the launches sit in one ``aegis.viterbi`` span
+    (``decode_attrs``) that names the forward launch the pass makes,
+    except inside a CUDA graph capture, whose replays run no Python."""
+    launch, span = None, contextlib.nullcontext()
+    if recording() and not (log_obs_v.is_cuda
+                            and torch.cuda.is_current_stream_capturing()):
+        if log_obs_v.is_cuda:
+            launch = forward_launch_for(log_obs_v, n, w)
+        span = phase("aegis.viterbi", **decode_attrs(log_obs_v, n, w, launch))
+    with span:
+        psi_v, psi_u, delta_last = viterbi_fwd(log_obs_v, log_obs_u, band, n,
+                                               w, log_stay, log_switch, tab,
+                                               launch)
+        return viterbi_back(delta_last, psi_v, psi_u)
+
+
+def decode_attrs(log_obs_v: torch.Tensor, n: int, w: int,
+                 launch: ForwardLaunch | None) -> dict:
+    """What a decode's ``aegis.viterbi`` span records: B, T, n, w and the
+    forward kernel of ``launch`` with its tile, cluster and passes;
+    ``"plain"`` (and no launch numbers) without a launch, on the CPU."""
+    B, T = log_obs_v.shape[:2]
+    if launch is None:
+        return {"B": B, "T": T, "n": n, "w": w, "kernel": "plain",
+                "tile": None, "cluster": None, "passes": None}
+    return {"B": B, "T": T, "n": n, "w": w, "kernel": launch.kernel,
+            "tile": launch.tile, "cluster": launch.cluster,
+            "passes": launch.passes}
