@@ -10,6 +10,13 @@ Counterpart of ``aegis_tpu/core/analyze.py``:
 plus, for the financial engine, the guitar filters and the financial
 trend / articulation / slide / confidence stack (``financial_tail``).
 
+On the card the packed program of one key (``fused_graph_key``: the length
+bucket, the configuration, the transport, the rows and the device) is
+captured once as a CUDA graph (``_FusedGraph``, through ``core/graphs.py``)
+at its first dispatch, which its eager warm-up answers, and every later
+dispatch with that key replays it: one graph launch in place of ~3 600
+kernel launches.  The CPU runs the same program eagerly.
+
 The host helpers (bucketing, transports, packing) are copies of the JAX
 module's, which the port cannot import because that module imports jax.
 Input lengths are padded to the same buckets as the JAX package: the
@@ -19,14 +26,16 @@ zero-padded bucket tail, so skipping the padding would change edge frames.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import collections
+import threading
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig
-from aegis_tpu_torch.core import dsp, masks, trend
+from aegis_tpu_torch.core import dsp, graphs, masks, trend
 from aegis_tpu_torch.core.cqt import onset_strength_t
 from aegis_tpu_torch.core.pyin import extract_pyin_frames, pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
@@ -293,14 +302,198 @@ def _unpack(buf: np.ndarray, rows, n_mels: int) -> Dict[str, np.ndarray]:
     return result
 
 
+def pinned(a: np.ndarray) -> torch.Tensor:
+    """A host array in pinned memory, the source of an async upload."""
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+
+
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> ``device`` without blocking the host: a CUDA upload
     goes through pinned memory as an async copy on the current stream (a
     pageable copy would wait for the work already queued)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
+        return pinned(a).to(device, non_blocking=True)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def quantize_transport(y_pad: np.ndarray, transport: str):
+    """A bucket-padded track as ``transport`` uploads it: (samples, scale),
+    the scale an array of block scales (int8, int4) or a float (int16,
+    float32), as ``dequant_transport`` reads them."""
+    if transport == "int8":
+        return quantize_pcm8(y_pad)
+    if transport == "int4":
+        return quantize_pcm4(y_pad)
+    if transport == "int16":
+        return quantize_pcm16(y_pad)
+    if transport == "float32":
+        return y_pad, 1.0
+    raise ValueError(f"unknown transport {transport!r} "
+                     "(int8 | int4 | int16 | float32)")
+
+
+def packed_program(audio: AudioConfig, pyin_cfg: PyinConfig, tables: Tables,
+                   financial: bool, use_guitar_filters: bool,
+                   fetch_mel: bool) -> Callable:
+    """The packed fused program of one configuration: (samples, scale,
+    rake sensitivity) -> packed rows.  The rake is a float, or a 0-d
+    float32 tensor (a graph's input), compared in float32 either way."""
+    if financial:
+        return lambda y, scale, rake: analyze_financial_program_packed(
+            y, scale, rake, audio, pyin_cfg, tables, use_guitar_filters,
+            fetch_mel)
+    return lambda y, scale, rake: analyze_program_packed(
+        y, scale, rake, audio, pyin_cfg, tables, fetch_mel)
+
+
+# ---------------------------------------------------------------------------
+# The fused program as CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: captured fused programs a card keeps, the least recently used evicted
+#: first: the fused path takes tracks up to 240 s by default, which at
+#: 44 100 Hz fall in 218 length buckets (129 of them from 15 s up), so
+#: every bucket of one configuration stays captured once seen; an evicted
+#: key is captured anew at its next dispatch
+FUSED_GRAPHS = 256
+
+
+def fused_graph_key(bucket: int, audio: AudioConfig, pyin_cfg: PyinConfig,
+                    transport: str, fetch_mel: bool, financial: bool,
+                    use_guitar_filters: bool, device: torch.device) -> tuple:
+    """What fixes the fused program's launch sequence and shapes, one
+    captured graph each: the padded length, the configurations (n = 450
+    and n = 900 decode in different kernels), the transport's dtype and
+    scale layout, the packed rows and the device."""
+    return (bucket, audio, pyin_cfg, transport, bool(fetch_mel),
+            bool(financial), bool(use_guitar_filters), device)
+
+
+def shared_replays(device: torch.device) -> graphs.Replays:
+    """The replays of one card's fused graphs, which share a memory pool.
+
+    Sharing is safe only because no two replays overlap: a graph's
+    intermediates (and so its packed output) may sit where another graph's
+    intermediates sit, so each replay runs in the card's one turn
+    (``Replays.turn``: under its lock, on the stream order after the
+    previous replay's copy-out), and its output is cloned before the turn
+    ends."""
+    return graphs.Replays(device, shared_pool=True)
+
+
+class _FusedGraph:
+    """The packed fused program of one key captured once as a CUDA graph.
+
+    Its static inputs, made before the capture and filled with the inputs
+    of the dispatch that captures it, are the transported samples and their
+    scale (in the transport's dtype and shape) and the rake sensitivity as
+    a 0-d float32 tensor, so that one graph serves every rake;
+    ``program`` holds the tables the graph reads, which
+    ``tables_from_numpy``'s cache may evict.  The capture's eager warm-up
+    answers that dispatch (``first``); every later one replays."""
+
+    def __init__(self, replays: graphs.Replays, program: Callable,
+                 samples: np.ndarray, scale, rake: float, bucket: int,
+                 device: torch.device):
+        self.replays, self.program, self.device = replays, program, device
+        self.bucket = bucket
+        with torch.cuda.device(device):
+            self.samples = torch.from_numpy(
+                np.ascontiguousarray(samples)).to(device)
+            self.scale = (torch.from_numpy(scale).to(device)
+                          if isinstance(scale, np.ndarray) else
+                          torch.full((), scale, dtype=torch.float32,
+                                     device=device))
+            self.rake = torch.full((), rake, dtype=torch.float32,
+                                   device=device)
+        self.captured = graphs.CapturedProgram(
+            lambda: program(self.samples, self.scale, self.rake), replays)
+
+    def first(self) -> Optional[torch.Tensor]:
+        """The packed rows of the dispatch that captured the graph, from
+        its eager warm-up; None once taken."""
+        return self.captured.take_first()
+
+    def __call__(self, samples: torch.Tensor, scale, rake: float
+                 ) -> torch.Tensor:
+        """One dispatch, queued on the current stream with no host sync:
+        the pinned host samples and scale (a pinned tensor, or a float)
+        and the rake in, a clone of the packed rows out."""
+        with self.replays.turn():
+            self.samples.copy_(samples, non_blocking=True)
+            if isinstance(scale, torch.Tensor):
+                self.scale.copy_(scale, non_blocking=True)
+            else:
+                self.scale.fill_(scale)
+            self.rake.fill_(rake)
+            self.replay()
+            return self.captured.out.clone()
+
+    def replay(self) -> None:
+        """The graph's launch in its ``aegis.fused_graph`` span."""
+        with phase("aegis.fused_graph", bucket=self.bucket):
+            self.captured.replay()
+
+
+class FusedGraphs:
+    """The captured fused programs of one card by key (``fused_graph_key``):
+    at most ``FUSED_GRAPHS``, the least recently used evicted first.  The
+    graphs share one memory pool (``shared_replays``); a card with no
+    graph left takes a fresh pool, since PyTorch shares no pool that no
+    live graph holds.  A capture that fails raises: nothing falls back to
+    the eager program.  ``new_replays`` makes a card's replays (a stand-in
+    in the CPU tests)."""
+
+    def __init__(self, device: torch.device,
+                 new_replays: Callable = shared_replays):
+        self.device = device
+        self._new_replays = new_replays
+        self._replays = None
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def __contains__(self, key) -> bool:
+        return key in self._graphs
+
+    def get(self, key, capture: Callable):
+        """The graph of ``key`` and whether this call captured it; on a
+        miss ``capture(replays)`` makes it, one capture at a time in the
+        process (``graphs.CAPTURE_LOCK``), while other keys' graphs
+        replay."""
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is not None:
+                self._graphs.move_to_end(key)
+                return graph, False
+        with graphs.CAPTURE_LOCK:
+            with self._lock:
+                graph = self._graphs.get(key)
+                if graph is not None:
+                    return graph, False
+                if not self._graphs:
+                    self._replays = self._new_replays(self.device)
+                replays = self._replays
+            graph = capture(replays)
+            with self._lock:
+                self._graphs[key] = graph
+                while len(self._graphs) > FUSED_GRAPHS:
+                    self._graphs.popitem(last=False)
+        return graph, True
+
+
+_CARDS: Dict[torch.device, FusedGraphs] = {}
+_CARDS_LOCK = threading.Lock()
+
+
+def fused_graphs(device: torch.device) -> FusedGraphs:
+    """The fused graphs of one card (a ``torch.device`` with its index)."""
+    with _CARDS_LOCK:
+        if device not in _CARDS:
+            _CARDS[device] = FusedGraphs(device)
+        return _CARDS[device]
 
 
 def dispatch_analyze(
@@ -319,38 +512,42 @@ def dispatch_analyze(
     for the device (no ``.item()``, no ``.cpu()``), so several tracks can be
     in flight before any fetch.  Resolve with fetch_analyze(handle).  The
     first call for a new length or config builds its constant tables,
-    which uploads them once."""
+    which uploads them once; on the card it also captures the program of
+    its key (``fused_graph_key``) as a CUDA graph, which every later call
+    with that key replays."""
     with phase("aegis.enqueue"):
         device = resolve_device(device)
         true_frames = audio.n_frames(len(y))
         y_pad = pad_to_bucket(np.asarray(y, np.float32))
-        if transport == "int8":
-            y8, s8 = quantize_pcm8(y_pad)
-            y_dev, scale = upload(y8, device), upload(s8, device)
-        elif transport == "int4":
-            y4, s4 = quantize_pcm4(y_pad)
-            y_dev, scale = upload(y4, device), upload(s4, device)
-        elif transport == "int16":
-            y16, s = quantize_pcm16(y_pad)
-            y_dev = upload(y16, device)
-            scale = torch.full((), s, dtype=torch.float32, device=device)
-        elif transport == "float32":
-            y_dev = upload(y_pad, device)
-            scale = torch.ones((), dtype=torch.float32, device=device)
+        samples, scale = quantize_transport(y_pad, transport)
+        rows = _FIN_ROWS if financial else _V1_ROWS
+
+        def program():
+            return packed_program(
+                audio, pyin_cfg, tables_from_numpy(audio, pyin_cfg, device),
+                financial, use_guitar_filters, fetch_mel)
+
+        if device.type == "cuda":
+            if device.index is None:
+                device = torch.device("cuda", torch.cuda.current_device())
+            key = fused_graph_key(len(y_pad), audio, pyin_cfg, transport,
+                                  fetch_mel, financial, use_guitar_filters,
+                                  device)
+            graph, captured = fused_graphs(device).get(
+                key, lambda replays: _FusedGraph(
+                    replays, program(), samples, scale, rake_sensitivity,
+                    len(y_pad), device))
+            packed = graph.first() if captured else graph(
+                pinned(samples), (pinned(scale)
+                                  if isinstance(scale, np.ndarray) else scale),
+                rake_sensitivity)
         else:
-            raise ValueError(f"unknown transport {transport!r} "
-                             "(int8 | int4 | int16 | float32)")
-        tables = tables_from_numpy(audio, pyin_cfg, device)
-        if financial:
-            packed = analyze_financial_program_packed(
-                y_dev, scale, rake_sensitivity, audio, pyin_cfg, tables,
-                use_guitar_filters, fetch_mel)
-            rows = _FIN_ROWS
-        else:
-            packed = analyze_program_packed(y_dev, scale, rake_sensitivity,
-                                            audio, pyin_cfg, tables,
-                                            fetch_mel)
-            rows = _V1_ROWS
+            packed = program()(
+                upload(samples, device),
+                (upload(scale, device) if isinstance(scale, np.ndarray)
+                 else torch.full((), scale, dtype=torch.float32,
+                                 device=device)),
+                rake_sensitivity)
         return packed, rows, true_frames, audio.n_mels if fetch_mel else 0
 
 

@@ -15,7 +15,8 @@ and the build are shared by every thread of a process (the REST server runs
 requests in threads), so each is updated under a lock.  Launches a thread
 makes inside ``recording_launches()`` (a CUDA graph's warm-up and capture)
 are recorded there and not counted; ``count_launches`` counts a recorded
-list once, for each replay of the graph.
+list once, for each replay of the graph.  ``recording_decodes()`` keeps the
+span attributes of the decodes a graph captures, for its replays' spans.
 
 The library is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
 under the repository root, keyed by a hash of the source and the flags,
@@ -288,6 +289,19 @@ def count_launches(launched: List[Tuple[str, tuple]]) -> None:
     """Count launches recorded by ``recording_launches``: one replay."""
     for name, shape in launched:
         _count(name, shape)
+
+
+@contextlib.contextmanager
+def recording_decodes() -> Iterator[List[dict]]:
+    """The ``decode_attrs`` of the decodes this thread captures into a CUDA
+    graph inside, in their order: a replay runs no Python, so the graph
+    makes each replay's ``aegis.viterbi`` spans from these."""
+    outer = getattr(_RECORD, "decodes", None)
+    _RECORD.decodes = recorded = []
+    try:
+        yield recorded
+    finally:
+        _RECORD.decodes = outer
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -571,13 +585,20 @@ def viterbi_decode_cuda(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor,
 
     While a profiler runs, the launches sit in one ``aegis.viterbi`` span
     (``decode_attrs``) that names the forward launch the pass makes,
-    except inside a CUDA graph capture, whose replays run no Python."""
+    except inside a CUDA graph capture, whose replays run no Python: there
+    the attributes go to ``recording_decodes``, where one is open."""
     launch, span = None, contextlib.nullcontext()
-    if recording() and not (log_obs_v.is_cuda
-                            and torch.cuda.is_current_stream_capturing()):
+    capturing = (log_obs_v.is_cuda
+                 and torch.cuda.is_current_stream_capturing())
+    decodes = getattr(_RECORD, "decodes", None) if capturing else None
+    if decodes is not None or (recording() and not capturing):
         if log_obs_v.is_cuda:
             launch = forward_launch_for(log_obs_v, n, w)
-        span = phase("aegis.viterbi", **decode_attrs(log_obs_v, n, w, launch))
+        attrs = decode_attrs(log_obs_v, n, w, launch)
+        if decodes is not None:
+            decodes.append(attrs)
+        else:
+            span = phase("aegis.viterbi", **attrs)
     with span:
         psi_v, psi_u, delta_last = viterbi_fwd(log_obs_v, log_obs_u, band, n,
                                                w, log_stay, log_switch, tab,

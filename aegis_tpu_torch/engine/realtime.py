@@ -42,7 +42,6 @@ voice-acceptance peak is applied on the host at poll time.
 from __future__ import annotations
 
 import functools
-import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,7 +49,7 @@ import torch
 
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
-from aegis_tpu_torch.core import pyin_cuda
+from aegis_tpu_torch.core import graphs
 from aegis_tpu_torch.core.analyze import (_BOOL_ROWS, _GTR_ROWS, _V1_ROWS,
                                           quantize_pcm16, reflect_head,
                                           upload)
@@ -220,9 +219,10 @@ class _LiveGraph:
     length, B = 1, T = tile + 2 * halo.  Its inputs (the int16 slab, the
     0-d dequant scale, the 0-d rake sensitivity, the 0-d running
     reference) and outputs (the packed rows, the new reference) are static
-    tensors shared by every session of the program, so a replay holds the
-    graph's lock from the copies into the inputs to the copies out of the
-    outputs."""
+    tensors shared by every session of the program, so a replay takes the
+    graph's turn (``graphs.Replays``) from the copies into the inputs to
+    the copies out of the outputs.  The graph has a memory pool of its
+    own."""
 
     def __init__(self, body, slab_len: int, device: torch.device):
         self.device = device
@@ -230,54 +230,28 @@ class _LiveGraph:
         self.scale = torch.zeros((), dtype=torch.float32, device=device)
         self.rake = torch.zeros((), dtype=torch.float32, device=device)
         self.ref = torch.zeros((), dtype=torch.float32, device=device)
-        self._lock = threading.Lock()
-        # the last replay's copies out, which the next copies in follow
-        self._done = torch.cuda.Event()
-
-        def run():
-            return body(self.slab16, self.scale, self.rake, self.ref)
-
-        with torch.cuda.device(device):
-            # eagerly first, on a side stream: loads the Viterbi library,
-            # makes the cuBLAS and cuFFT handles and plans, fills the
-            # caching allocator; then the capture.  Handler threads of the
-            # server may launch meanwhile: only this thread's calls are
-            # checked (thread_local)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), pyin_cuda.recording_launches():
-                run()
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with pyin_cuda.recording_launches() as self.launched, \
-                    torch.cuda.graph(self.graph, stream=side,
-                                     capture_error_mode="thread_local"):
-                self.rows, self.new_ref = run()
+        self.replays = graphs.Replays(device)
+        self.program = graphs.CapturedProgram(
+            lambda: body(self.slab16, self.scale, self.rake, self.ref),
+            self.replays)
+        self.program.first = None          # the first tile replays too
+        self.rows, self.new_ref = self.program.out
 
     def __call__(self, slab16: torch.Tensor, scale: float, rake_sens: float,
                  ref_power: torch.Tensor):
         """One tile: the session's uploaded slab, its scale, its rake
         sensitivity and its own reference in, its rows (a new tensor) out;
         ``ref_power`` is updated in place."""
-        with self._lock, torch.cuda.device(self.device):
-            stream = torch.cuda.current_stream()
-            stream.wait_event(self._done)
+        with self.replays.turn():
             self.slab16.copy_(slab16)
             self.scale.fill_(scale)
             self.rake.fill_(rake_sens)
             self.ref.copy_(ref_power)
             with phase("aegis.live_graph"):
-                self.graph.replay()
-            pyin_cuda.count_launches(self.launched)
+                self.program.replay()
             ref_power.copy_(self.new_ref)
             rows = self.rows.clone()
-            self._done.record(stream)
         return rows, ref_power
-
-
-# one capture at a time in the process (torch.cuda.graph synchronizes the
-# device and empties the allocator's cache on entry)
-_CAPTURE_LOCK = threading.Lock()
 
 
 class _TileProgram:
@@ -344,7 +318,7 @@ class _TileProgram:
                     slab16, torch.tensor(scale, dtype=torch.float32),
                     torch.tensor(rake_sens, dtype=torch.float32), ref_power)
             if self._graph is None:
-                with _CAPTURE_LOCK:
+                with graphs.CAPTURE_LOCK:
                     if self._graph is None:
                         self._graph = _LiveGraph(self.body, slab16.shape[0],
                                                  self.device)

@@ -10,7 +10,7 @@ live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
 the self-verification loops, the REST server, the PitchNet trainer, the
 validation tools, the Streamlit apps, the multi-device paths, the finer
-pitch grids and the warm-up command, in thirty-two phases; each raises on
+pitch grids and the warm-up command, in thirty-three phases; each raises on
 failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
@@ -97,6 +97,15 @@ failure:
                they give alone.  Prints the tile wall ms replayed and
                eager, and a replay's host launch ms and device ms (v1,
                44 100 Hz).
+ 13b. fused graph — the fused program replays one captured CUDA graph a
+               key: at the six length buckets of the benchmark's 15-120 s
+               takes @ 44 100 Hz, at n = 450 (viterbi_fwd_kernel) and
+               n = 900 (viterbi_fwd_wide_kernel), each replay's packed rows
+               bitwise the eager program's, one launch of each kernel
+               counted a replay; prints each capture's seconds, the eager
+               and replayed wall ms, a replay's host launch ms and device
+               ms, and the peak device memory with the six buckets of one
+               grid captured and with both grids' twelve.
  14. poly parts — the polyphonic device half on the card, at 22 050 and
                44 100 Hz on the CQT of a chord clip: the voice peel against
                its NumPy oracle (picks equal on >= 0.999 of entries,
@@ -337,6 +346,7 @@ from aegis_tpu_torch.core import cqt as tcqt
 from aegis_tpu_torch.core import poly as tpoly
 from aegis_tpu_torch.core import pyin as tpyin
 from aegis_tpu_torch.core import pyin_cuda
+from aegis_tpu_torch.core import analyze as tanalyze
 from aegis_tpu_torch.core.analyze import (dequant_transport, dispatch_analyze,
                                           fetch_analyze, pad_to_bucket,
                                           quantize_pcm8)
@@ -1553,8 +1563,9 @@ def capture_beside_work(dev, n_tiles: int = 12,
                                         for a, b in zip(replayed, eager))}
 
 
-def replay_ms(graph, n: int = 20) -> dict:
-    """Medians over ``n`` replays of a captured tile graph alone: the host
+def replay_ms(captured, n: int = 20) -> dict:
+    """Medians over ``n`` replays of a captured graph alone (a live tile
+    program's or a fused program's ``graphs.CapturedProgram``): the host
     ms of the launch call, and the device ms (CUDA events) from the
     graph's first node to its last.  A spin kernel queued first keeps
     the device busy until the whole graph has been launched."""
@@ -1566,7 +1577,7 @@ def replay_ms(graph, n: int = 20) -> dict:
         torch.cuda._sleep(200_000_000)      # ~0.1 s at the card's clock
         start.record()
         t0 = time.perf_counter()
-        graph.graph.replay()
+        captured.graph.replay()
         host.append(1e3 * (time.perf_counter() - t0))
         end.record()
         end.synchronize()
@@ -1611,7 +1622,7 @@ def phase_live_graph(dev) -> None:
                    [ms for *_, ms in eager[1:]])),
                "card": CARD["nvidia_smi"]}
         if name == "v1_44100":
-            row.update(replay_ms(captured))
+            row.update(replay_ms(captured.program))
         emit(row)
         if not (equal and row["second_session_bitwise"] and row["captured"]
                 and row["second_session_captured_nothing"]):
@@ -1639,6 +1650,171 @@ def phase_live_graph(dev) -> None:
     if not all(row[k] for k in ("captured", "work_overlapped_capture",
                                 "work_equal_alone", "replays_bitwise_body")):
         raise AssertionError(f"live graph: {row}")
+
+
+# --------------------------------------------------------------------------
+# The fused program's graphs
+# --------------------------------------------------------------------------
+
+# the benchmark's take lengths (bench_torch/traffic/rest_mono.json): six
+# length buckets at 44 100 Hz
+FUSED_BUCKET_SECONDS = (15, 30, 45, 60, 90, 120)
+
+
+def fused_args(sr: int = 44100, pyin_cfg: PyinConfig = CFG,
+               transport: str = "int8", fetch_mel: bool = True,
+               financial: bool = False) -> dict:
+    """dispatch_analyze's arguments for one key (the REST v1 request's by
+    default)."""
+    return dict(audio=AudioConfig(sample_rate=sr), pyin_cfg=pyin_cfg,
+                transport=transport, fetch_mel=fetch_mel,
+                financial=financial)
+
+
+def fused_key(dev, y, audio, pyin_cfg, transport="int8", fetch_mel=True,
+              financial=False) -> tuple:
+    """The graph cache's key of a dispatch of ``y``."""
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return tanalyze.fused_graph_key(len(pad_to_bucket(y)), audio, pyin_cfg,
+                                    transport, fetch_mel, financial, True,
+                                    dev)
+
+
+def fused_graph(dev, y, **kw):
+    """The captured graph a dispatch of ``y`` replays (None before its
+    first dispatch on the card, or once evicted)."""
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return tanalyze.fused_graphs(dev)._graphs.get(fused_key(dev, y, **kw))
+
+
+def fused_replayed(dev, y, rake: float = 0.6, **kw) -> np.ndarray:
+    """The whole packed buffer of one dispatch through the graph cache."""
+    packed, *_ = dispatch_analyze(y, rake_sensitivity=rake, device=dev, **kw)
+    return packed.cpu().numpy()
+
+
+def fused_eager(dev, y, rake: float = 0.6, audio=None, pyin_cfg=CFG,
+                transport="int8", fetch_mel=True, financial=False
+                ) -> np.ndarray:
+    """The same packed buffer from the program run eagerly on the card (no
+    graph), on the same transported samples."""
+    samples, scale = tanalyze.quantize_transport(
+        pad_to_bucket(np.asarray(y, np.float32)), transport)
+    program = tanalyze.packed_program(
+        audio, pyin_cfg, tables_from_numpy(audio, pyin_cfg, dev), financial,
+        True, fetch_mel)
+    scale = (tanalyze.upload(scale, dev) if isinstance(scale, np.ndarray)
+             else torch.full((), scale, dtype=torch.float32, device=dev))
+    with pyin_cuda.recording_launches():
+        return program(tanalyze.upload(samples, dev), scale,
+                       rake).cpu().numpy()
+
+
+def same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    """Bitwise equal buffers (NaN f0 too)."""
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def fused_ahead(dev, ys, **kw) -> list:
+    """``ys`` dispatched ahead, all queued before any is fetched, as the
+    folder does: each track's fetched rows."""
+    handles = [dispatch_analyze(y, device=dev, **kw) for y in ys]
+    return [fetch_analyze(h) for h in handles]
+
+
+def fused_profile(dev, y, kw: dict, n: int = 3) -> dict:
+    """The decode kernels a replay of ``y``'s fused graph runs, from the
+    profiler's own kernel events over ``n`` replays (a replay's launches
+    are counted from its capture, not measured): {kernel name: launches a
+    replay} over ``VITERBI_KERNELS``."""
+    kernels, _ = profile_kernels(lambda: fused_replayed(dev, y, **kw), n)
+    return {k: sum(c for name, (_, c) in kernels.items() if k in name) / n
+            for k in VITERBI_KERNELS}
+
+
+def phase_fused_graph(dev) -> None:
+    """Every fused dispatch replays one captured graph a key: at each of
+    the benchmark's six length buckets @ 44 100 Hz, at n = 450 and
+    n = 900, the replay's packed buffer bitwise the eager program's, one
+    launch of each kernel counted a replay at the bucket's shape and the
+    captured decode naming its kernel; a second dispatch captures
+    nothing.  Prints each capture's seconds (the first dispatch, its
+    eager warm-up included), the eager and replayed wall ms, and the peak
+    device memory with the buckets captured.  At 60 s the profiler's own
+    kernel events must show one forward kernel, the one the launch rule
+    picks, and one of each backtrace kernel a replay."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for res, kernel in ((0.1, "viterbi_fwd_kernel"),
+                        (0.05, "viterbi_fwd_wide_kernel")):
+        cfg = PyinConfig(resolution=res)
+        kw = fused_args(44100, cfg)
+        n = cfg.n_pitch_bins
+        w = tables_from_numpy(kw["audio"], cfg, dev).half_width
+        for i, sec in enumerate(FUSED_BUCKET_SECONDS):
+            y = generate_bench_track(float(sec), sr=44100, seed=42 + i)
+            T = kw["audio"].n_frames(len(pad_to_bucket(y)))
+            eager = fused_eager(dev, y, **kw)
+            torch.cuda.synchronize()
+            fresh = fused_graph(dev, y, **kw) is None
+            reset_counts()
+            t0 = time.perf_counter()
+            first = fused_replayed(dev, y, **kw)
+            capture_s = time.perf_counter() - t0
+            graph = fused_graph(dev, y, **kw)
+            ms = {}
+            for name, fn in (("eager", lambda: fused_eager(dev, y, **kw)),
+                             ("replayed",
+                              lambda: fused_replayed(dev, y, **kw))):
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = fn()
+                    walls.append(1e3 * (time.perf_counter() - t0))
+                ms[name] = float(np.median(walls))
+            want = {"viterbi_fwd": {(1, T, n, w): 4},
+                    "viterbi_back": {(1, T, n): 4}}
+            row = {"phase": "fused_graph", "resolution": res, "seconds": sec,
+                   "bucket": len(pad_to_bucket(y)), "T": T,
+                   "captured_here": fresh, "capture_s": capture_s,
+                   "replay_bitwise_eager": same_bytes(first, eager)
+                   and same_bytes(got, eager),
+                   "counted": pyin_cuda.SHAPES == want,
+                   "decodes": [a["kernel"] for a in graph.captured.decodes],
+                   "captured_nothing_again":
+                       fused_graph(dev, y, **kw) is graph,
+                   "eager_wall_ms_median": ms["eager"],
+                   "replayed_wall_ms_median": ms["replayed"],
+                   "card": CARD["nvidia_smi"]}
+            if sec == 60:
+                row.update(replay_ms(graph.captured, 10))
+                row["decode_kernels_a_replay_traced"] = fused_profile(
+                    dev, y, kw)
+            emit(row)
+            if not (row["replay_bitwise_eager"] and row["counted"]
+                    and row["decodes"] == [kernel]
+                    and row["captured_nothing_again"]):
+                raise AssertionError(f"fused graph: {row}")
+            traced = row.get("decode_kernels_a_replay_traced")
+            if traced is not None and traced != {
+                    k: int(k == kernel or "_back" in k)
+                    for k in VITERBI_KERNELS}:
+                raise AssertionError(f"fused graph {res} {sec} s: decode "
+                                     f"kernels a replay {traced}")
+        torch.cuda.synchronize()
+        emit({"phase": "fused_graph", "resolution": res,
+              "graphs_cached": len(tanalyze.fused_graphs(
+                  fused_key(dev, y, **kw)[-1])),
+              "peak_bytes_since_phase_start":
+                  torch.cuda.max_memory_allocated(dev),
+              "allocated_bytes_above_phase_start":
+                  torch.cuda.memory_allocated(dev) - base,
+              "reserved_bytes": torch.cuda.memory_reserved(dev),
+              "card": CARD["nvidia_smi"]})
 
 
 # --------------------------------------------------------------------------
@@ -3603,10 +3779,12 @@ class DecodeInputs:
     observations, for the comparison with the plain versions afterwards.
     Every launch of both kernels goes through
     ``pyin_cuda.viterbi_decode_cuda`` (``core/pyin.py::_decode_states``),
-    but a live tile on the card replays a captured graph, which runs no
-    Python: the first tile of each tile program is also run through its
-    eager body on the same inputs (launches recorded, not counted; 13a
-    holds the replay bitwise to that body) to keep its decode's inputs."""
+    but a live tile or a fused dispatch on the card replays a captured
+    graph, which runs no Python: the first tile of each tile program, and
+    the first replay of each fused graph, is also run through its eager
+    program on the same inputs (launches recorded, not counted; 13a and
+    13b hold the replays bitwise to those programs) to keep its decode's
+    inputs."""
 
     def __init__(self):
         self.by_shape: dict = {}
@@ -3617,6 +3795,7 @@ class DecodeInputs:
 
         self._real = real = pyin_cuda.viterbi_decode_cuda
         self._tile = tile = _TileProgram.__call__
+        self._fused = fused = tanalyze._FusedGraph.__call__
 
         def keep(lo_v, lo_u, band, n, w, log_stay, log_switch, tab=None):
             self.by_shape.setdefault((lo_v.shape[0], lo_v.shape[1], n, w),
@@ -3635,8 +3814,17 @@ class DecodeInputs:
                                  torch.tensor(rake_sens, **f32), ref_in)
             return out
 
+        def keep_fused(graph, samples, scale, rake):
+            out = fused(graph, samples, scale, rake)
+            if id(graph) not in self._programs:
+                self._programs.add(id(graph))
+                with graph.replays.lock, pyin_cuda.recording_launches():
+                    graph.program(graph.samples, graph.scale, graph.rake)
+            return out
+
         pyin_cuda.viterbi_decode_cuda = keep
         _TileProgram.__call__ = keep_tile
+        tanalyze._FusedGraph.__call__ = keep_fused
         return self
 
     def __exit__(self, *exc):
@@ -3644,6 +3832,7 @@ class DecodeInputs:
 
         pyin_cuda.viterbi_decode_cuda = self._real
         _TileProgram.__call__ = self._tile
+        tanalyze._FusedGraph.__call__ = self._fused
         return False
 
 
@@ -4692,6 +4881,7 @@ def main() -> int:
     live_ms = timed("times_live", phase_times_live, dev, tracks, live_shapes,
                     live_stats)
     timed("live_graph", phase_live_graph, dev)
+    timed("fused_graph", phase_fused_graph, dev)
 
     # the polyphonic stack: no hand kernel (its paths run no pYIN), so every
     # phase also checks that neither Viterbi kernel was launched

@@ -449,6 +449,133 @@ def test_live_graph_captures_beside_rest_work(cuda):
                                 "replays_bitwise_body")), got
 
 
+# ------------------------------------------ the fused program's graphs
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [0.1, 0.05])
+@pytest.mark.parametrize("seconds", [15, 30, 45, 60, 90, 120])
+def test_fused_graph_replays_equal_the_eager_program(cuda, seconds, res):
+    """A REST v1 dispatch at each of the benchmark's six length buckets
+    (44 100 Hz), at n = 450 and n = 900, replays its key's captured graph:
+    the packed buffer bitwise the eager program's on the same samples,
+    one launch of each kernel counted a replay at the bucket's shape, and
+    the captured decode naming the kernel the launch rule picks."""
+    cs = _chip_smoke()
+    cfg = PyinConfig(resolution=res)
+    kw = cs.fused_args(44100, cfg)
+    y = cs.generate_bench_track(float(seconds), sr=44100, seed=seconds)
+    eager = cs.fused_eager(cuda, y, **kw)
+    cs.reset_counts()
+    got = [cs.fused_replayed(cuda, y, **kw) for _ in range(2)]
+    graph = cs.fused_graph(cuda, y, **kw)
+    n = cfg.n_pitch_bins
+    w = cs.tables_from_numpy(kw["audio"], cfg, cuda).half_width
+    T = kw["audio"].n_frames(len(cs.pad_to_bucket(y)))
+    assert pyin_cuda.SHAPES == {"viterbi_fwd": {(1, T, n, w): 2},
+                                "viterbi_back": {(1, T, n): 2}}
+    assert all(cs.same_bytes(g, eager) for g in got)
+    kernel = "viterbi_fwd_wide_kernel" if n > 512 else "viterbi_fwd_kernel"
+    assert [a["kernel"] for a in graph.captured.decodes] == [kernel]
+    assert graph.bucket == len(cs.pad_to_bucket(y))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport,fetch_mel,financial", [
+    ("int8", True, False), ("int8", False, False), ("int16", True, False),
+    ("int16", False, False), ("int8", False, True)])
+def test_fused_graph_replays_equal_at_each_transport(cuda, transport,
+                                                     fetch_mel, financial):
+    """The int8 and int16 transports with and without the mel rows, and
+    the folder's financial key, at 30 s @ 22 050 Hz: replays bitwise the
+    eager program, one graph for the key."""
+    cs = _chip_smoke()
+    kw = cs.fused_args(22050, transport=transport, fetch_mel=fetch_mel,
+                       financial=financial)
+    y = cs.generate_bench_track(30.0, sr=22050, seed=7)
+    eager = cs.fused_eager(cuda, y, **kw)
+    first = cs.fused_replayed(cuda, y, **kw)
+    graph = cs.fused_graph(cuda, y, **kw)
+    assert cs.same_bytes(first, eager)
+    assert cs.same_bytes(cs.fused_replayed(cuda, y, **kw), eager)
+    assert graph is not None and cs.fused_graph(cuda, y, **kw) is graph
+
+
+@pytest.mark.cuda
+def test_fused_graph_is_captured_once_a_key(cuda):
+    """A second dispatch, and dispatches at rake 0.3 and 0.9, replay the
+    first graph, each bitwise the eager program at its rake, with rake
+    masks that differ as the eager ones do."""
+    from aegis_tpu_torch.core.analyze import _V1_ROWS
+
+    cs = _chip_smoke()
+    kw = cs.fused_args(22050)
+    y, _ = cs.generate_test_track(sr=22050)
+    cs.fused_replayed(cuda, y, **kw)
+    first = cs.fused_graph(cuda, y, **kw)
+    col = kw["audio"].n_mels + _V1_ROWS.index("rake_mask")
+    masks = {}
+    for rake in (0.6, 0.3, 0.9):
+        got = cs.fused_replayed(cuda, y, rake, **kw)
+        want = cs.fused_eager(cuda, y, rake, **kw)
+        assert cs.same_bytes(got, want), rake
+        assert cs.fused_graph(cuda, y, **kw) is first
+        masks[rake] = got[:, col]
+    assert (masks[0.3] != masks[0.9]).any()
+
+
+@pytest.mark.cuda
+def test_fused_graph_dispatch_ahead_keeps_each_tracks_rows(cuda):
+    """Six tracks dispatched ahead as the folder does, two of them of one
+    bucket back to back, then all fetched: each track's rows are its own
+    eager rows."""
+    from aegis_tpu_torch.core.analyze import _unpack, _V1_ROWS
+
+    cs = _chip_smoke()
+    kw = cs.fused_args(44100, fetch_mel=False)
+    ys = [cs.generate_bench_track(float(s), sr=44100, seed=100 + i)
+          for i, s in enumerate((15, 30, 30, 45, 60, 15))]
+    assert len(cs.pad_to_bucket(ys[1])) == len(cs.pad_to_bucket(ys[2]))
+    got = cs.fused_ahead(cuda, ys, **kw)
+    for y, rows in zip(ys, got):
+        T = kw["audio"].n_frames(len(y))
+        want = _unpack(cs.fused_eager(cuda, y, **kw)[:T], _V1_ROWS, 0)
+        assert set(rows) == set(want)
+        assert all(rows[k].tobytes() == want[k].tobytes() for k in rows)
+    assert got[1]["f0"].tobytes() != got[2]["f0"].tobytes()
+
+
+@pytest.mark.cuda
+def test_fused_graph_eviction_frees_the_graph_and_recaptures_it(cuda,
+                                                                monkeypatch):
+    """With a cache of two graphs, a third key evicts the first: its graph
+    is freed, and its next dispatch captures it anew with the same rows,
+    which its replays give too."""
+    import gc
+    import weakref
+
+    from aegis_tpu_torch.core import analyze
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    monkeypatch.setattr(analyze, "FUSED_GRAPHS", 2)
+    monkeypatch.setitem(analyze._CARDS, dev, analyze.FusedGraphs(dev))
+    kw = cs.fused_args(22050)
+    ys = [cs.generate_bench_track(float(s), sr=22050, seed=s)
+          for s in (5, 10, 20)]
+    first = cs.fused_replayed(dev, ys[0], **kw)
+    gone = weakref.ref(cs.fused_graph(dev, ys[0], **kw))
+    for y in ys[1:]:
+        cs.fused_replayed(dev, y, **kw)
+    gc.collect()
+    assert gone() is None and cs.fused_graph(dev, ys[0], **kw) is None
+    assert len(analyze._CARDS[dev]) == 2
+    again = cs.fused_replayed(dev, ys[0], **kw)
+    assert cs.fused_graph(dev, ys[0], **kw) is not None
+    assert cs.same_bytes(again, first)
+    assert cs.same_bytes(again, cs.fused_eager(dev, ys[0], **kw))
+    assert cs.same_bytes(cs.fused_replayed(dev, ys[0], **kw), first)
+
+
 # ------------------------------------------------- the polyphonic programs
 
 @pytest.mark.cuda
