@@ -425,6 +425,8 @@ def cmd_warmup(args) -> int:
 
 
 def main(argv=None) -> int:
+    from aegis_tpu_torch.core.analyze import TRANSPORTS
+
     ap = argparse.ArgumentParser(prog="aegis_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="command", required=True)
@@ -497,7 +499,7 @@ def main(argv=None) -> int:
                         "financial 5-phase, polyphonic CQT, or the "
                         "polyphony-aware router (auto)")
     p.add_argument("--transport", default="int8",
-                   choices=["int8", "int4", "int16", "float32"],
+                   choices=TRANSPORTS,
                    help="audio upload packing (int4 = throughput over "
                         "fidelity; poly and auto keep their own)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

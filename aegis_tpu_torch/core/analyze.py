@@ -17,6 +17,15 @@ at its first dispatch, which its eager warm-up answers, and every later
 dispatch with that key replays it: one graph launch in place of ~3 600
 kernel launches.  The CPU runs the same program eagerly.
 
+The upload format ("transport") is decided here alone: ``ingest`` takes
+every track or live v1 tile that names one.  Left apart, by layout:
+
+  * tiled batches (``quantize_tracks``): one int16 scale a track of a batch;
+  * streamed v1 and neural slabs: slabs and edges on one track-wide scale;
+  * ``StreamingPolyTranscriber._run_tile``: two slabs on one int16 grid;
+  * ``core/hpss.py``: one int16 scale, slabs dequantized before its program;
+  * ``models/data.py``: a training bank, with its own rule for near-silence.
+
 The host helpers (bucketing, transports, packing) are copies of the JAX
 module's, which the port cannot import because that module imports jax.
 Input lengths are padded to the same buckets as the JAX package: the
@@ -28,7 +37,7 @@ from __future__ import annotations
 
 import collections
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -129,6 +138,25 @@ def quantize_pcm4(y: np.ndarray, block: int = PCM4_BLOCK):
     qi = q.astype(np.int8).reshape(-1)
     packed = ((qi[0::2] & 0xF) | ((qi[1::2] & 0xF) << 4)).astype(np.uint8)
     return packed, (peak / 7.0).astype(np.float32)
+
+
+def quantize_tracks(ys: np.ndarray, n_samples: int) -> tuple:
+    """(B, *) float tracks -> zero-padded (B, n_samples) int16 + (B,) scales.
+
+    The scale is PER TRACK: with one batch-global peak a track 40 dB quieter
+    than the loudest would be quantized with only ~56 dB SNR; per-track
+    scaling gives every track the full int16 range regardless of batch
+    company."""
+    out = np.zeros((len(ys), n_samples), np.int16)
+    scales = np.ones(len(ys), np.float32)
+    for i, y in enumerate(ys):
+        n = min(len(y), n_samples)
+        peak = float(np.max(np.abs(np.asarray(y[:n])))) if n else 0.0
+        if peak > 0:
+            scales[i] = peak / 32767.0
+            out[i, :n] = np.round(np.asarray(y[:n], np.float64)
+                                  / scales[i]).astype(np.int16)
+    return out, scales
 
 
 def dequant_transport(y: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -302,34 +330,72 @@ def _unpack(buf: np.ndarray, rows, n_mels: int) -> Dict[str, np.ndarray]:
     return result
 
 
-def pinned(a: np.ndarray) -> torch.Tensor:
-    """A host array in pinned memory, the source of an async upload."""
-    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+def stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as the source of an upload to ``device``: in pinned
+    memory for a card (a pageable copy would wait for the work already
+    queued), else the array itself."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if device.type == "cuda" else t
 
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> ``device`` without blocking the host: a CUDA upload
-    goes through pinned memory as an async copy on the current stream (a
-    pageable copy would wait for the work already queued)."""
-    if device.type == "cuda":
-        return pinned(a).to(device, non_blocking=True)
-    return torch.from_numpy(np.ascontiguousarray(a))
+    """Host array -> ``device`` without blocking the host: ``stage``, then
+    an async copy on the current stream."""
+    return stage(a, device).to(device, non_blocking=True)
 
 
-def quantize_transport(y_pad: np.ndarray, transport: str):
-    """A bucket-padded track as ``transport`` uploads it: (samples, scale),
-    the scale an array of block scales (int8, int4) or a float (int16,
-    float32), as ``dequant_transport`` reads them."""
-    if transport == "int8":
-        return quantize_pcm8(y_pad)
-    if transport == "int4":
-        return quantize_pcm4(y_pad)
-    if transport == "int16":
-        return quantize_pcm16(y_pad)
-    if transport == "float32":
-        return y_pad, 1.0
-    raise ValueError(f"unknown transport {transport!r} "
-                     "(int8 | int4 | int16 | float32)")
+# each transport's quantizer and the block its samples' length must fill
+_QUANTIZERS = {"int8": (quantize_pcm8, PCM8_BLOCK),
+               "int4": (quantize_pcm4, PCM4_BLOCK),
+               "int16": (quantize_pcm16, 1),
+               "float32": (lambda y: (y, 1.0), 1)}
+#: a caller that takes fewer passes its subset to ``check_transport``
+TRANSPORTS = tuple(_QUANTIZERS)
+
+
+def check_transport(transport: str, accepted=TRANSPORTS) -> None:
+    """Raise the one error for a transport name outside ``accepted``."""
+    if transport not in accepted:
+        raise ValueError(f"unknown transport {transport!r} "
+                         f"({' | '.join(accepted)})")
+
+
+def put(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """A staged tensor (``Ingest``) into the device tensor ``dst`` with no
+    host sync: copied from pinned memory, or a 0-d scale filled by value."""
+    return (dst.copy_(src, non_blocking=True) if src.dim()
+            else dst.fill_(float(src)))
+
+
+class Ingest(NamedTuple):
+    """A track or tile staged on the host (pinned for a card): samples in
+    the transport's dtype, a float32 scale of rank 1 (int8, int4: one a
+    block) or 0-d (int16, float32), as ``dequant_transport`` reads them."""
+
+    samples: torch.Tensor
+    scale: torch.Tensor
+
+    def upload(self, device: torch.device) -> "Ingest":
+        """Both on ``device`` (``put``); on the CPU the staged tensors."""
+        if device.type != "cuda":
+            return self
+        return Ingest(*(put(torch.empty_like(t, device=device), t)
+                        for t in self))
+
+
+def ingest(y: np.ndarray, transport: str, device: torch.device,
+           accepted=TRANSPORTS) -> Ingest:
+    """The one ingest: ``y`` quantized by ``transport`` (one of
+    ``accepted``) and staged for ``device``, zero-padded first to a multiple
+    of a block transport's block (a bucket-padded track is one already)."""
+    check_transport(transport, accepted)
+    quantize, block = _QUANTIZERS[transport]
+    y = np.asarray(y, np.float32)
+    samples, scale = quantize(np.pad(y, (0, -len(y) % block))
+                              if len(y) % block else y)
+    return Ingest(stage(samples, device),
+                  stage(scale, device) if np.ndim(scale)
+                  else torch.tensor(scale, dtype=torch.float32))
 
 
 def packed_program(audio: AudioConfig, pyin_cfg: PyinConfig, tables: Tables,
@@ -386,26 +452,18 @@ class _FusedGraph:
 
     Its static inputs, made before the capture and filled with the inputs
     of the dispatch that captures it, are the transported samples and their
-    scale (in the transport's dtype and shape) and the rake sensitivity as
-    a 0-d float32 tensor, so that one graph serves every rake;
-    ``program`` holds the tables the graph reads, which
-    ``tables_from_numpy``'s cache may evict.  The capture's eager warm-up
-    answers that dispatch (``first``); every later one replays."""
+    scale (the ``Ingest`` uploaded) and the rake sensitivity as a 0-d
+    float32 tensor, so that one graph serves every rake; ``program`` holds
+    the tables the graph reads, which ``tables_from_numpy``'s cache may
+    evict.  The capture's eager warm-up answers that dispatch (``first``);
+    every later one replays."""
 
     def __init__(self, replays: graphs.Replays, program: Callable,
-                 samples: np.ndarray, scale, rake: float, bucket: int,
-                 device: torch.device):
-        self.replays, self.program, self.device = replays, program, device
-        self.bucket = bucket
-        with torch.cuda.device(device):
-            self.samples = torch.from_numpy(
-                np.ascontiguousarray(samples)).to(device)
-            self.scale = (torch.from_numpy(scale).to(device)
-                          if isinstance(scale, np.ndarray) else
-                          torch.full((), scale, dtype=torch.float32,
-                                     device=device))
-            self.rake = torch.full((), rake, dtype=torch.float32,
-                                   device=device)
+                 staged: Ingest, rake: float, bucket: int):
+        self.replays, self.program, self.bucket = replays, program, bucket
+        device = replays.device
+        self.samples, self.scale = staged.upload(device)
+        self.rake = torch.full((), rake, dtype=torch.float32, device=device)
         self.captured = graphs.CapturedProgram(
             lambda: program(self.samples, self.scale, self.rake), replays)
 
@@ -414,17 +472,13 @@ class _FusedGraph:
         its eager warm-up; None once taken."""
         return self.captured.take_first()
 
-    def __call__(self, samples: torch.Tensor, scale, rake: float
-                 ) -> torch.Tensor:
+    def __call__(self, staged: Ingest, rake: float) -> torch.Tensor:
         """One dispatch, queued on the current stream with no host sync:
-        the pinned host samples and scale (a pinned tensor, or a float)
-        and the rake in, a clone of the packed rows out."""
+        the staged samples and scale (``put``) and the rake in, a clone of
+        the packed rows out."""
         with self.replays.turn():
-            self.samples.copy_(samples, non_blocking=True)
-            if isinstance(scale, torch.Tensor):
-                self.scale.copy_(scale, non_blocking=True)
-            else:
-                self.scale.fill_(scale)
+            put(self.samples, staged.samples)
+            put(self.scale, staged.scale)
             self.rake.fill_(rake)
             self.replay()
             return self.captured.out.clone()
@@ -519,7 +573,7 @@ def dispatch_analyze(
         device = resolve_device(device)
         true_frames = audio.n_frames(len(y))
         y_pad = pad_to_bucket(np.asarray(y, np.float32))
-        samples, scale = quantize_transport(y_pad, transport)
+        staged = ingest(y_pad, transport, device)
         rows = _FIN_ROWS if financial else _V1_ROWS
 
         def program():
@@ -535,19 +589,12 @@ def dispatch_analyze(
                                   device)
             graph, captured = fused_graphs(device).get(
                 key, lambda replays: _FusedGraph(
-                    replays, program(), samples, scale, rake_sensitivity,
-                    len(y_pad), device))
-            packed = graph.first() if captured else graph(
-                pinned(samples), (pinned(scale)
-                                  if isinstance(scale, np.ndarray) else scale),
-                rake_sensitivity)
+                    replays, program(), staged, rake_sensitivity,
+                    len(y_pad)))
+            packed = (graph.first() if captured
+                      else graph(staged, rake_sensitivity))
         else:
-            packed = program()(
-                upload(samples, device),
-                (upload(scale, device) if isinstance(scale, np.ndarray)
-                 else torch.full((), scale, dtype=torch.float32,
-                                 device=device)),
-                rake_sensitivity)
+            packed = program()(*staged.upload(device), rake_sensitivity)
         return packed, rows, true_frames, audio.n_mels if fetch_mel else 0
 
 

@@ -41,9 +41,8 @@ from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig
 from aegis_tpu_torch.core import poly as P
 from aegis_tpu_torch.core.analyze import (_V1_ROWS, _pack, _unpack,
-                                          analyze_program, bucket_length,
-                                          dequant_transport, quantize_pcm8,
-                                          upload)
+                                          analyze_program, dequant_transport,
+                                          ingest, pad_to_bucket)
 from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.core.tables import poly_tables, tables_from_numpy
 from aegis_tpu_torch.engine.poly import N_MELS
@@ -345,16 +344,15 @@ def dispatch_analyze_auto(y: np.ndarray, eng: "AegisAutoEngine",
     fetch_analyze_auto(handle, eng)."""
     device = resolve_device(device)
     true_frames = 1 + len(y) // eng.hop_length
-    n = bucket_length(len(y))
     # int8 block-float transport, as the v1 and poly engines ship by default
-    y8, s = quantize_pcm8(np.pad(np.asarray(y, np.float32),
-                                 (0, n - len(y))))
+    y8, s = ingest(pad_to_bucket(np.asarray(y, np.float32)), "int8",
+                   device).upload(device)
     tables = tables_from_numpy(eng.audio, eng.pyin_cfg, device)
     ptabs = poly_tables(eng.sr, eng.n_fft_poly, eng.n_bins,
                         eng.bins_per_octave, N_MELS, device)
     with phase("aegis.auto_program"):
         buf = analyze_auto_program_packed(
-            upload(y8, device), upload(s, device), rake_sensitivity,
+            y8, s, rake_sensitivity,
             eng.audio, eng.pyin_cfg, tables, ptabs, eng.max_voices)
     return buf, true_frames
 

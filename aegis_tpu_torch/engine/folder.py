@@ -31,7 +31,8 @@ from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.io.audio import load_audio
 from aegis_tpu_torch.midi.encode import events_to_midi, events_to_midi_financial
 from aegis_tpu_torch.utils.logging import get_logger
-from aegis_tpu_torch.core.analyze import dispatch_analyze, fetch_analyze
+from aegis_tpu_torch.core.analyze import (check_transport, dispatch_analyze,
+                                          fetch_analyze)
 from aegis_tpu_torch.core.events import extract_events_v1
 from aegis_tpu_torch.utils.mesh import Mesh, rank_device
 from aegis_tpu_torch.utils.prof import phase
@@ -89,9 +90,7 @@ def transcribe_folder(
                          "pitch stacks (no neural backend)")
     if pitch_backend not in ("pyin", "neural"):
         raise ValueError(f"unknown pitch backend: {pitch_backend!r}")
-    if transport not in ("int8", "int4", "int16", "float32"):
-        raise ValueError(f"unknown transport {transport!r} "
-                         "(int8 | int4 | int16 | float32)")
+    check_transport(transport)
     single_chip = mesh is None and not dist.is_initialized()
     device = rank_device(mesh, device)
     lead = (mesh.rank if mesh is not None
@@ -244,13 +243,13 @@ def transcribe_folder(
                                        transport=transport, device=device),
             fetch_analyze)
     else:
-        from aegis_tpu_torch.engine.turbo import run_analyze_batch
+        from aegis_tpu_torch.engine.turbo import (TILED_TRANSPORTS,
+                                                  run_analyze_batch)
 
         per_track = mesh_slices(run_analyze_batch(
             stacked(), audio, pyin_cfg, rake_sensitivity, turbo=turbo,
             fetch_mel=False, financial=financial,
-            # the tiled batch programs take per-track int16 or float32 only
-            transport="float32" if transport == "float32" else "int16",
+            transport=transport if transport in TILED_TRANSPORTS else "int16",
             device=device, mesh=mesh))
 
     results = []

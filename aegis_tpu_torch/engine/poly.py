@@ -21,12 +21,10 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Union
 
 import numpy as np
-import torch
 
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.core import poly as P
-from aegis_tpu_torch.core.analyze import (pad_to_bucket, quantize_pcm8,
-                                          quantize_pcm16, upload)
+from aegis_tpu_torch.core.analyze import ingest, pad_to_bucket
 from aegis_tpu_torch.core.cqt import pick_onsets, split_events_at_onsets
 from aegis_tpu_torch.core.events import velocity_from_db
 from aegis_tpu_torch.core.tables import poly_tables
@@ -39,6 +37,8 @@ from aegis_tpu_torch.utils.prof import phase
 log = get_logger("PolyEngine")
 
 N_MELS = 128  # mel bands of the onset envelope's spectrogram
+
+POLY_TRANSPORTS = ("int8", "int16")
 
 
 def dispatch_analyze_poly(y: np.ndarray, sr: int, n_fft: int = 2048,
@@ -57,17 +57,9 @@ def dispatch_analyze_poly(y: np.ndarray, sr: int, n_fft: int = 2048,
     with phase("aegis.enqueue"):
         device = resolve_device(device)
         true_frames = 1 + len(y) // hop_length
-        y_pad = pad_to_bucket(np.asarray(y, np.float32))
-        if transport == "int8":
-            yq, s = quantize_pcm8(y_pad)
-            y_dev, scale = upload(yq, device), upload(s, device)
-        elif transport == "int16":
-            yq, s = quantize_pcm16(y_pad)
-            y_dev = upload(yq, device)
-            scale = torch.full((), s, dtype=torch.float32, device=device)
-        else:
-            raise ValueError(f"unknown transport {transport!r} "
-                             "(int8 | int16)")
+        y_dev, scale = ingest(pad_to_bucket(np.asarray(y, np.float32)),
+                              transport, device,
+                              POLY_TRANSPORTS).upload(device)
         tables = poly_tables(sr, n_fft, n_bins, bins_per_octave, N_MELS,
                              device)
         with phase("aegis.poly_program"):

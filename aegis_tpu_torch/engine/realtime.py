@@ -25,6 +25,8 @@ B = 1 and T = tile + 2 * halo frames) with two online adaptations:
 On the card the tile program's launch sequence is captured once as a CUDA
 graph for each (config, device), and every tile of every session of that
 program replays it (``_LiveGraph``); the CPU runs the same body eagerly.
+A session keeps its first tile's program: an eviction from
+``_tile_program``'s cache costs a later session one capture, not a tile.
 
 Host memory grows only by the per-frame output rows (~40 B/frame);
 ``poll_events()`` re-runs the (native C++) event extraction over the
@@ -51,8 +53,8 @@ from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core import graphs
 from aegis_tpu_torch.core.analyze import (_BOOL_ROWS, _GTR_ROWS, _V1_ROWS,
-                                          quantize_pcm16, reflect_head,
-                                          upload)
+                                          ingest, put, quantize_pcm16,
+                                          reflect_head, upload)
 from aegis_tpu_torch.core.poly import unpack_poly_voices
 from aegis_tpu_torch.utils.prof import phase
 
@@ -237,14 +239,14 @@ class _LiveGraph:
         self.program.first = None          # the first tile replays too
         self.rows, self.new_ref = self.program.out
 
-    def __call__(self, slab16: torch.Tensor, scale: float, rake_sens: float,
-                 ref_power: torch.Tensor):
-        """One tile: the session's uploaded slab, its scale, its rake
-        sensitivity and its own reference in, its rows (a new tensor) out;
-        ``ref_power`` is updated in place."""
+    def __call__(self, slab16: torch.Tensor, scale: torch.Tensor,
+                 rake_sens: float, ref_power: torch.Tensor):
+        """One tile: the session's staged slab and scale (``put``), its
+        rake sensitivity and its own reference in, its rows (a new tensor)
+        out; ``ref_power`` is updated in place."""
         with self.replays.turn():
-            self.slab16.copy_(slab16)
-            self.scale.fill_(scale)
+            put(self.slab16, slab16)
+            put(self.scale, scale)
             self.rake.fill_(rake_sens)
             self.ref.copy_(ref_power)
             with phase("aegis.live_graph"):
@@ -306,17 +308,16 @@ class _TileProgram:
         cols = [out[k][0].to(torch.float32)[:, None] for k in self.rows_spec]
         return torch.cat(cols, dim=1), new_ref
 
-    def __call__(self, slab16: torch.Tensor, scale: float, rake_sens: float,
-                 ref_power: torch.Tensor):
-        """One tile: the uploaded int16 slab, its dequant scale (a float32
-        value), the rake sensitivity and the session's reference ->
-        (rows, new reference), both on the device.  The rake enters as a
-        float32, the type it is compared in."""
+    def __call__(self, slab16: torch.Tensor, scale: torch.Tensor,
+                 rake_sens: float, ref_power: torch.Tensor):
+        """One tile: the int16 slab and its 0-d scale as ``ingest`` stages
+        them, the rake sensitivity and the session's reference -> (rows,
+        new reference), both on the device.  The rake enters as a float32,
+        the type it is compared in."""
         with phase("aegis.live_tile"):
             if self.device.type != "cuda":
-                return self.body(
-                    slab16, torch.tensor(scale, dtype=torch.float32),
-                    torch.tensor(rake_sens, dtype=torch.float32), ref_power)
+                return self.body(slab16, scale, torch.tensor(
+                    rake_sens, dtype=torch.float32), ref_power)
             if self._graph is None:
                 with graphs.CAPTURE_LOCK:
                     if self._graph is None:
@@ -381,6 +382,7 @@ class StreamingTranscriber:
         # running mel-power dB reference, kept on the device between tiles
         self._ref_power = torch.zeros((), dtype=torch.float32,
                                       device=self.device)
+        self._program: Optional[_TileProgram] = None  # from the first tile
         self._n_fed = 0
         self._final_rows: Optional[Dict[str, np.ndarray]] = None  # finalized
 
@@ -421,13 +423,12 @@ class StreamingTranscriber:
             return done
 
     def _run_tile(self, slab: np.ndarray) -> None:
-        program = _tile_program(self.audio, self.pyin_cfg, self.turbo,
-                                self.financial, self.use_guitar_filters,
-                                self.device)
-        slab16, scale = quantize_pcm16(slab)
-        # the dequant scale enters the program as a float32, as in JAX
-        rows, self._ref_power = program(
-            upload(slab16, self.device), float(np.float32(scale)),
+        if self._program is None:
+            self._program = _tile_program(
+                self.audio, self.pyin_cfg, self.turbo, self.financial,
+                self.use_guitar_filters, self.device)
+        rows, self._ref_power = self._program(
+            *ingest(slab, "int16", self.device),
             float(self.rake_sensitivity), self._ref_power)
         # the tile's one device->host copy; the reference stays on the device
         with phase("aegis.live_fetch"):

@@ -43,7 +43,9 @@ from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core import masks, trend
 from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _GTR_ROWS, _INT_ROWS,
                                           _V1_ROWS, PCM8_BLOCK, _unpack,
-                                          quantize_pcm8, upload)
+                                          check_transport, quantize_pcm8,
+                                          quantize_pcm16, quantize_tracks,
+                                          upload)
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.pyin import pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
@@ -351,37 +353,19 @@ def analyze_audio_sharded(
     return _assemble(m.gather_world(packed), m)
 
 
-def quantize_tracks(ys: np.ndarray, n_samples: int) -> tuple:
-    """(B, *) float tracks -> zero-padded (B, n_samples) int16 + (B,) scales.
-
-    The scale is PER TRACK: with one batch-global peak a track 40 dB quieter
-    than the loudest would be quantized with only ~56 dB SNR; per-track
-    scaling gives every track the full int16 range regardless of batch
-    company."""
-    out = np.zeros((len(ys), n_samples), np.int16)
-    scales = np.ones(len(ys), np.float32)
-    for i, y in enumerate(ys):
-        n = min(len(y), n_samples)
-        peak = float(np.max(np.abs(np.asarray(y[:n])))) if n else 0.0
-        if peak > 0:
-            scales[i] = peak / 32767.0
-            out[i, :n] = np.round(np.asarray(y[:n], np.float64)
-                                  / scales[i]).astype(np.int16)
-    return out, scales
+TILED_TRANSPORTS = ("int16", "float32")
 
 
 def _tiled_inputs(ys: np.ndarray, n_samp: int, transport: str,
                   device: torch.device):
     """(B, n) tracks -> device PCM (B, n_samp) and (B,) scales."""
+    check_transport(transport, TILED_TRANSPORTS)
     if transport == "int16":
         y_dev, scale = quantize_tracks(np.asarray(ys, np.float32), n_samp)
-    elif transport == "float32":
+    else:
         y_dev = np.zeros((len(ys), n_samp), np.float32)
         y_dev[:, : ys.shape[1]] = np.asarray(ys, np.float32)
         scale = np.ones(len(ys), np.float32)
-    else:
-        raise ValueError(f"unknown transport {transport!r} "
-                         "(tiled paths: int16 | float32)")
     return upload(y_dev, device), upload(scale, device)
 
 
@@ -730,10 +714,8 @@ def run_analyze_streamed(
         q8, bscales = quantize_pcm8(y_pad)
         q8, bscales = q8[None], bscales[None]
         nblk = slab_samp // PCM8_BLOCK
-        peak = float(np.max(np.abs(y_pad)))
-        esc = np.float32(peak / 32767.0 if peak > 0 else 0.0)
-        y16 = (np.round(y_pad * (32767.0 / peak)).astype(np.int16)[None]
-               if peak > 0 else np.zeros((1, n_samp), np.int16))
+        y16, esc = quantize_pcm16(y_pad)
+        y16 = y16[None]
         slabs_np = [q8[:, s * slab_samp: (s + 1) * slab_samp]
                     for s in range(n_slabs)]
         scales_np = [bscales[:, s * nblk: (s + 1) * nblk]

@@ -45,17 +45,19 @@ from torch import nn
 from aegis_tpu_torch import resolve_device
 from aegis_tpu_torch.config import NOTE_E2_HZ, AudioConfig, PyinConfig
 from aegis_tpu_torch.core import dsp, masks
-from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _V1_ROWS, PCM8_BLOCK,
-                                          _pack, _unpack, bucket_length,
-                                          dequant_transport, financial_tail,
-                                          pad_to_bucket, quantize_pcm8,
-                                          quantize_pcm16, upload)
+from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _V1_ROWS, _pack,
+                                          _unpack, bucket_length,
+                                          check_transport, dequant_transport,
+                                          financial_tail, ingest,
+                                          pad_to_bucket, quantize_pcm16,
+                                          quantize_tracks, upload)
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.tables import tables_from_numpy
 from aegis_tpu_torch.utils.mesh import SOLO, Mesh, resolve_mesh
 from aegis_tpu_torch.utils.prof import phase
 
 SR_NATIVE = 22050  # the net is trained at this rate; other rates resample
+NEURAL_TRANSPORTS = ("int8", "int16", "float32")
 WIN = 2048
 N_RFFT = WIN // 2 + 1
 FMIN_HZ = float(NOTE_E2_HZ * 2.0 ** (-1.0 / 12.0))  # one semitone below E2
@@ -707,28 +709,14 @@ def dispatch_analyze_neural(
     neural program on ``device`` and return an opaque handle WITHOUT
     waiting for the device, so a folder sweep can put every track in flight
     before fetching any.  Resolve with fetch_analyze_neural(handle)."""
-    if transport not in ("int8", "int16", "float32"):
-        raise ValueError(f"unknown transport {transport!r} "
-                         "(neural backend: int8 | int16 | float32)")
+    check_transport(transport, NEURAL_TRANSPORTS)
     device = resolve_device(device)
     if params is None:
         params = default_params(device)
 
-    def _quant(arr):
-        if transport == "int8":
-            pad = (-len(arr)) % PCM8_BLOCK
-            q, s8 = quantize_pcm8(np.pad(arr, (0, pad)))
-            return upload(q, device), upload(s8, device)
-        if transport == "float32":
-            return (upload(np.asarray(arr, np.float32), device),
-                    torch.ones((), dtype=torch.float32, device=device))
-        q, s16 = quantize_pcm16(arr)
-        return (upload(q, device),
-                torch.full((), s16, dtype=torch.float32, device=device))
-
     true_frames = 1 + len(y) // hop_length
     y_pad = pad_to_bucket(np.asarray(y, np.float32))
-    y_q, s = _quant(y_pad)
+    y_q, s = ingest(y_pad, transport, device).upload(device)
     rows = _FIN_ROWS if financial else _V1_ROWS
 
     with phase("aegis.neural_program"):
@@ -752,7 +740,7 @@ def dispatch_analyze_neural(
             T_pad = 1 + len(y_pad) // hop_length
             need = (T_pad * (hop22 or int(np.ceil(num / sr)))) + WIN
             y22_pad = np.pad(y22, (0, max(need - len(y22), 0)))
-            y22_q, s22 = _quant(y22_pad)
+            y22_q, s22 = ingest(y22_pad, transport, device).upload(device)
             if uniform:
                 centers = None
             else:
@@ -829,10 +817,8 @@ def run_analyze_neural_batch(
 
     Native rate (22.05 kHz) only: other rates use the per-track dual-rate
     programs (dispatch_analyze_neural).  Tracks quantize per-track int16
-    (engine.turbo.quantize_tracks); silent filler tracks pad B to a
+    (core.analyze.quantize_tracks); silent filler tracks pad B to a
     multiple of the world and are dropped on fetch."""
-    from aegis_tpu_torch.engine.turbo import quantize_tracks
-
     if sr != SR_NATIVE:
         raise ValueError(
             f"run_analyze_neural_batch is native-rate ({SR_NATIVE}) only; "
@@ -849,11 +835,9 @@ def run_analyze_neural_batch(
     B = ys2.shape[0]
     true_frames = 1 + ys2.shape[1] // hop_length
     n_samp = bucket_length(ys2.shape[1])
-    y16, scales = quantize_tracks(ys2, n_samp)
-    pad = (-B) % m.world
-    if pad:  # silent filler tracks shard-align the batch; dropped on fetch
-        y16 = np.concatenate([y16, np.zeros((pad, n_samp), np.int16)])
-        scales = np.concatenate([scales, np.ones(pad, np.float32)])
+    # silent fillers (zeros, scale 1) shard-align the batch; dropped on fetch
+    fill = [np.zeros(0, np.float32)] * ((-B) % m.world)
+    y16, scales = quantize_tracks(list(ys2) + fill, n_samp)
     per = len(y16) // m.world
     mine = slice(m.rank * per, (m.rank + 1) * per)
     y_dev, s_dev = upload(y16[mine], device), upload(scales[mine], device)

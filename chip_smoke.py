@@ -1376,7 +1376,7 @@ def eager_tiles(dev, y, sr: int, financial: bool = False,
                 pyin_cfg: PyinConfig = CFG, rake: float = 0.6) -> list:
     """The same tiles through the tile program's body run eagerly on the
     card (no graph): each tile's (rows, reference, wall ms)."""
-    from aegis_tpu_torch.core.analyze import quantize_pcm16, upload
+    from aegis_tpu_torch.core.analyze import ingest
 
     rt = live_transcriber(dev, sr, 24, 8, financial, pyin_cfg, rake)
     program = tile_program(rt)
@@ -1386,10 +1386,9 @@ def eager_tiles(dev, y, sr: int, financial: bool = False,
     out = []
     for k in range(len(tile_pieces(y, rt))):
         t0 = time.perf_counter()
-        slab16, scale = quantize_pcm16(padded[k * ts:k * ts + 2 * ctx + ts])
+        staged = ingest(padded[k * ts:k * ts + 2 * ctx + ts], "int16", dev)
         rows, ref = program.body(
-            upload(slab16, dev),
-            torch.tensor(np.float32(scale), device=dev),
+            *staged.upload(dev),
             torch.tensor(rake, dtype=torch.float32, device=dev), ref)
         rows = rows.cpu().numpy()
         out.append((rows, ref.cpu().numpy().copy(),
@@ -1445,12 +1444,12 @@ def threaded_sessions(dev, ys, sr: int, timeout_s: float = 300.0) -> list:
 
 
 def tile_program(rt):
-    """The live tile program a session runs."""
+    """The live tile program a session runs (kept from its first tile)."""
     from aegis_tpu_torch.engine import realtime
 
-    return realtime._tile_program(rt.audio, rt.pyin_cfg, rt.turbo,
-                                  rt.financial, rt.use_guitar_filters,
-                                  rt.device)
+    return rt._program or realtime._tile_program(
+        rt.audio, rt.pyin_cfg, rt.turbo, rt.financial, rt.use_guitar_filters,
+        rt.device)
 
 
 def live_graph(dev, sr: int, financial: bool = False,
@@ -1493,7 +1492,7 @@ def capture_beside_work(dev, n_tiles: int = 12,
     graph's first ``n_tiles`` tiles are bitwise its own body's."""
     import threading
 
-    from aegis_tpu_torch.core.analyze import quantize_pcm16, upload
+    from aegis_tpu_torch.core.analyze import ingest
     from aegis_tpu_torch.engine import realtime
     from aegis_tpu_torch.engine.engine import AegisEngine
 
@@ -1520,7 +1519,7 @@ def capture_beside_work(dev, n_tiles: int = 12,
     ts, ctx = rt._tile_samp, rt._ctx
     padded = np.concatenate([np.zeros(ctx, np.float32),
                              generate_bench_track(10.0, sr=44100)])
-    slabs = [quantize_pcm16(padded[k * ts:k * ts + 2 * ctx + ts])
+    slabs = [ingest(padded[k * ts:k * ts + 2 * ctx + ts], "int16", dev)
              for k in range(n_tiles)]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
@@ -1531,11 +1530,9 @@ def capture_beside_work(dev, n_tiles: int = 12,
             time.sleep(0.01)
         ref = torch.zeros((), dtype=torch.float32, device=dev)
         t0 = time.perf_counter()
-        replayed = [fresh(upload(s16, dev), float(np.float32(sc)), 0.6, ref)
-                    for s16, sc in slabs[:1]]
+        replayed = [fresh(*staged, 0.6, ref) for staged in slabs[:1]]
         capture = (t0, time.perf_counter())
-        replayed += [fresh(upload(s16, dev), float(np.float32(sc)), 0.6, ref)
-                     for s16, sc in slabs[1:]]
+        replayed += [fresh(*staged, 0.6, ref) for staged in slabs[1:]]
         replayed = [rows.cpu().numpy() for rows, _ in replayed]
         n_before = len(windows)
         while len(windows) < n_before + 1 and thread.is_alive():
@@ -1548,9 +1545,8 @@ def capture_beside_work(dev, n_tiles: int = 12,
         raise AssertionError("live graph: the working thread hung")
     ref = torch.zeros((), dtype=torch.float32, device=dev)
     eager = []
-    for s16, sc in slabs:
-        rows, ref = fresh.body(upload(s16, dev),
-                               torch.tensor(np.float32(sc), device=dev),
+    for staged in slabs:
+        rows, ref = fresh.body(*staged.upload(dev),
                                torch.tensor(0.6, device=dev), ref)
         eager.append(rows.cpu().numpy())
     return {"captured": fresh._graph is not None,
@@ -1700,16 +1696,13 @@ def fused_eager(dev, y, rake: float = 0.6, audio=None, pyin_cfg=CFG,
                 ) -> np.ndarray:
     """The same packed buffer from the program run eagerly on the card (no
     graph), on the same transported samples."""
-    samples, scale = tanalyze.quantize_transport(
-        pad_to_bucket(np.asarray(y, np.float32)), transport)
+    samples, scale = tanalyze.ingest(
+        pad_to_bucket(np.asarray(y, np.float32)), transport, dev).upload(dev)
     program = tanalyze.packed_program(
         audio, pyin_cfg, tables_from_numpy(audio, pyin_cfg, dev), financial,
         True, fetch_mel)
-    scale = (tanalyze.upload(scale, dev) if isinstance(scale, np.ndarray)
-             else torch.full((), scale, dtype=torch.float32, device=dev))
     with pyin_cuda.recording_launches():
-        return program(tanalyze.upload(samples, dev), scale,
-                       rake).cpu().numpy()
+        return program(samples, scale, rake).cpu().numpy()
 
 
 def same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
@@ -3808,14 +3801,15 @@ class DecodeInputs:
             if (program._graph is not None
                     and id(program) not in self._programs):
                 self._programs.add(id(program))
-                f32 = dict(dtype=torch.float32, device=slab16.device)
+                staged = tanalyze.Ingest(slab16, scale).upload(program.device)
                 with pyin_cuda.recording_launches():
-                    program.body(slab16, torch.tensor(scale, **f32),
-                                 torch.tensor(rake_sens, **f32), ref_in)
+                    program.body(*staged,
+                                 torch.tensor(rake_sens, dtype=torch.float32,
+                                              device=program.device), ref_in)
             return out
 
-        def keep_fused(graph, samples, scale, rake):
-            out = fused(graph, samples, scale, rake)
+        def keep_fused(graph, staged, rake):
+            out = fused(graph, staged, rake)
             if id(graph) not in self._programs:
                 self._programs.add(id(graph))
                 with graph.replays.lock, pyin_cuda.recording_launches():

@@ -241,14 +241,13 @@ def test_the_cpu_path_stays_eager_with_the_same_rows(clip, transport,
 def test_the_rake_as_a_0d_tensor_gives_the_rows_of_the_float(clip,
                                                               financial):
     y_pad = analyze.pad_to_bucket(np.asarray(clip, np.float32))
-    samples, scale = analyze.quantize_transport(y_pad, "int8")
+    args = analyze.ingest(y_pad, "int8", CPU)
     program = analyze.packed_program(AUDIO, CFG,
                                      tables_from_numpy(AUDIO, CFG, CPU),
                                      financial, True, True)
     col = AUDIO.n_mels + analyze._V1_ROWS.index("rake_mask")
     masks = []
     for rake in (0.3, 0.9):
-        args = (torch.from_numpy(samples), torch.from_numpy(scale))
         as_float = program(*args, rake)
         as_tensor = program(*args, torch.tensor(rake, dtype=torch.float32))
         assert as_tensor.numpy().tobytes() == as_float.numpy().tobytes()

@@ -352,7 +352,8 @@ def test_tile_body_with_a_tensor_rake_equals_the_float_rake_program():
 
 def test_tile_program_keeps_its_signature_and_cache():
     """One program per (config, device), built once; the body takes the
-    scale and the rake as 0-d tensors and the call floats."""
+    scale and the rake as 0-d tensors, the call the slab and scale as the
+    ingest stages them and the rake as a float."""
     import inspect
 
     from aegis_tpu_torch.engine import realtime
@@ -368,7 +369,7 @@ def test_tile_program_keeps_its_signature_and_cache():
     span = 2 * (8 * 512 + 1024) + 24 * 512
     slab16 = torch.zeros(span, dtype=torch.int16)
     zero = torch.zeros((), dtype=torch.float32)
-    rows, new_ref = program(slab16, 0.0, 0.6, zero)
+    rows, new_ref = program(slab16, zero, 0.6, zero)
     body_rows, body_ref = program.body(slab16, zero, torch.tensor(0.6), zero)
     assert rows.shape == (24, len(program.rows_spec))
     assert rows.numpy().tobytes() == body_rows.numpy().tobytes()
