@@ -357,6 +357,7 @@ def warmup(pipelines=("v1", "financial"), seconds=(60.0,), sr: int = 22050,
         from aegis_tpu_torch.core import pyin_cuda
 
         pyin_cuda.library()
+        pyin_cuda.trough_library()
     print(f"# builds ready in {time.perf_counter() - t0:.1f}s",
           file=sys.stderr)
 

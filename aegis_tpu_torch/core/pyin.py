@@ -3,8 +3,9 @@
 Counterpart of ``aegis_tpu/core/pyin.py``, stage for stage: batched-FFT
 CMNDF, parabolic shifts, trough mask, the 100-threshold Beta/Boltzmann
 trough probabilities, the scatter into 0.1-semitone pitch bins, and the
-Viterbi decode — on a CUDA tensor the hand kernels of ``pyin_cuda``, on a
-CPU tensor their plain versions.
+Viterbi decode.  The last three are the hand kernels of ``pyin_cuda`` on a
+CUDA tensor (the trough probabilities and the scatter as one), their plain
+versions on a CPU tensor.
 
 The entry points take a leading batch of N sequences (one track, or the N
 haloed tiles of the tiled program).  Every stage before the decode works
@@ -105,31 +106,63 @@ def trough_probabilities(yin: torch.Tensor, mask: torch.Tensor,
     return acc
 
 
-def observations(probs: torch.Tensor, shifts: torch.Tensor, sr: int,
-                 min_period: int, cfg: PyinConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scatter trough probabilities into pitch bins.  (T, n_bins), (T,).
+def pitch_bins(shifts: torch.Tensor, sr: int, min_period: int,
+               cfg: PyinConfig) -> torch.Tensor:
+    """The pitch bin of every lag, (T, L) int64, from the parabolic
+    shifts: the lag's refined period as a frequency, in bins above fmin."""
+    L = shifts.shape[1]
+    nbps = cfg.n_bins_per_semitone
+    lags = torch.arange(L, dtype=shifts.dtype, device=shifts.device)
+    periods = min_period + lags[None, :] + shifts
+    freqs = sr / torch.clamp_min(periods, 1e-6)
+    bins = torch.round(12 * nbps * torch.log2(torch.clamp_min(freqs, 1e-6)
+                                               / cfg.fmin))
+    return torch.clamp(bins, 0, cfg.n_pitch_bins - 1).to(torch.int64)
+
+
+def scatter_bins(probs: torch.Tensor, bins: torch.Tensor,
+                 n_bins: int) -> torch.Tensor:
+    """Scatter trough probabilities (T, L) into their pitch bins: (T,
+    n_bins).
 
     Deterministic: one scatter per lag, in lag order, so no row sees two
     adds in one call and each bin sums its lags in the same order on every
     run and device (atomics over the whole plane would reorder the float
     sums, and the Viterbi argmax sits right behind them)."""
     T, L = probs.shape
-    n_bins = cfg.n_pitch_bins
-    nbps = cfg.n_bins_per_semitone
-
-    lags = torch.arange(L, dtype=probs.dtype, device=probs.device)
-    periods = min_period + lags[None, :] + shifts
-    freqs = sr / torch.clamp_min(periods, 1e-6)
-    bins = torch.round(12 * nbps * torch.log2(torch.clamp_min(freqs, 1e-6)
-                                               / cfg.fmin))
-    bins = torch.clamp(bins, 0, n_bins - 1).to(torch.int64)
-
     obs = torch.zeros((T, n_bins), dtype=probs.dtype, device=probs.device)
     for lag in range(L):
         obs.scatter_add_(1, bins[:, lag: lag + 1], probs[:, lag: lag + 1])
-    voiced_prob = torch.clamp(obs.sum(dim=1), 0.0, 1.0)
-    return obs, voiced_prob
+    return obs
+
+
+def observations(probs: torch.Tensor, shifts: torch.Tensor, sr: int,
+                 min_period: int, cfg: PyinConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter trough probabilities into pitch bins.  (T, n_bins), (T,)."""
+    obs = scatter_bins(probs, pitch_bins(shifts, sr, min_period, cfg),
+                       cfg.n_pitch_bins)
+    return obs, torch.clamp(obs.sum(dim=1), 0.0, 1.0)
+
+
+def trough_observations(yin: torch.Tensor, mask: torch.Tensor,
+                        bins: torch.Tensor, cfg: PyinConfig,
+                        tables: Tables) -> torch.Tensor:
+    """The observation plane (..., n_bins) of CMNDF rows yin (..., L),
+    their trough mask and the pitch bin of every lag: on a CUDA tensor one
+    launch of ``pyin_cuda.trough_obs``, on a CPU tensor its plain version,
+    ``trough_probabilities`` then ``scatter_bins``, which the kernel equals
+    bit for bit."""
+    if yin.device.type != "cpu":
+        return pyin_cuda.trough_obs(yin, mask, bins, tables.thresholds,
+                                    tables.beta_probs, cfg.n_pitch_bins,
+                                    cfg.boltzmann_parameter,
+                                    cfg.no_trough_prob)
+    L = yin.shape[-1]
+    probs = trough_probabilities(yin.reshape(-1, L), mask.reshape(-1, L),
+                                 cfg, tables)
+    obs = scatter_bins(probs, bins.reshape(-1, L), cfg.n_pitch_bins)
+    return obs.reshape(yin.shape[:-1] + (cfg.n_pitch_bins,))
 
 
 def viterbi_decode(obs: torch.Tensor, voiced_prob: torch.Tensor,
@@ -179,11 +212,14 @@ def frame_observations(frames: torch.Tensor, sr: int, cfg: PyinConfig,
     min_p, max_p = cfg.min_period(sr), cfg.max_period(sr)
     yin = cmndf_frames(frames.reshape(-1, frames.shape[-1]).to(torch.float32),
                        cfg.win_length, min_p, max_p)
-    shifts = parabolic_shifts(yin)
-    mask = trough_mask(yin)
-    probs = trough_probabilities(yin, mask, cfg, tables)
-    obs, voiced_prob = observations(probs, shifts, sr, min_p, cfg)
-    return obs.reshape(lead + obs.shape[-1:]), voiced_prob.reshape(lead)
+    bins = pitch_bins(parabolic_shifts(yin), sr, min_p, cfg)
+    rows = lead + yin.shape[-1:]
+    obs = trough_observations(yin.reshape(rows),
+                              trough_mask(yin).reshape(rows),
+                              bins.reshape(rows), cfg, tables)
+    voiced_prob = torch.clamp(obs.reshape(-1, obs.shape[-1]).sum(dim=1),
+                              0.0, 1.0)
+    return obs, voiced_prob.reshape(lead)
 
 
 def pyin_from_frames(frames: torch.Tensor, sr: int, cfg: PyinConfig,

@@ -1,15 +1,21 @@
-"""The pYIN Viterbi decode as two CUDA kernels, with their plain versions.
+"""The pYIN Viterbi decode as two CUDA kernels, with their plain versions,
+and the trough probabilities with their scatter into pitch bins as one.
 
-Kernels (``aegis_tpu_torch/csrc/viterbi.cu``, CUDA C++ for sm_90a):
+Kernels (CUDA C++ for sm_90a):
 
   * ``viterbi_fwd``  replaces ``_fwd_kernel``  of aegis_tpu/core/pyin_pallas.py
   * ``viterbi_back`` replaces ``_back_kernel`` of aegis_tpu/core/pyin_pallas.py
+    (both ``aegis_tpu_torch/csrc/viterbi.cu``)
+  * ``trough_obs`` replaces no TPU kernel: core/pyin.py's threshold loop
+    and per-lag scatter as one launch (``aegis_tpu_torch/csrc/trough_obs.cu``)
 
-Each wrapper takes its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor; there is no fallback between the two.  Each
-kernel launch adds one to ``LAUNCHES[name]``, records its batch size B in
-``LAST_BATCH[name]``, adds B to ``SEQUENCES[name]`` and adds one to
-``SHAPES[name][shape]``, so a run can show that it went through the
+Each Viterbi wrapper takes its plain PyTorch version for a CPU tensor and
+launches its kernel for a CUDA tensor; there is no fallback between the two.
+``trough_obs`` takes CUDA tensors only: its plain version is the two loops of
+core/pyin.py, which ``core/pyin.py::trough_observations`` runs on a CPU
+tensor.  Each kernel launch adds one to ``LAUNCHES[name]``, records its
+batch size B in ``LAST_BATCH[name]``, adds B to ``SEQUENCES[name]`` and adds
+one to ``SHAPES[name][shape]``, so a run can show that it went through the
 kernels, with how many sequences and at which shapes.  The counts
 and the build are shared by every thread of a process (the REST server runs
 requests in threads), so each is updated under a lock.  Launches a thread
@@ -18,7 +24,7 @@ are recorded there and not counted; ``count_launches`` counts a recorded
 list once, for each replay of the graph.  ``recording_decodes()`` keeps the
 span attributes of the decodes a graph captures, for its replays' spans.
 
-The library is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
+Each source is compiled with nvcc at first use into ``build/aegis_tpu_torch/``
 under the repository root, keyed by a hash of the source and the flags,
 and loaded with ctypes.  Both the build and any import of a GPU toolchain
 happen inside the calls, never at import time.
@@ -54,16 +60,17 @@ import torch
 from aegis_tpu_torch.core.tables import LOG_FLOOR, band_class_table
 from aegis_tpu_torch.utils.prof import phase, recording
 
-LAUNCHES = {"viterbi_fwd": 0, "viterbi_back": 0}
-LAST_BATCH = {"viterbi_fwd": 0, "viterbi_back": 0}
+LAUNCHES = {"viterbi_fwd": 0, "viterbi_back": 0, "trough_obs": 0}
+LAST_BATCH = {"viterbi_fwd": 0, "viterbi_back": 0, "trough_obs": 0}
 # the sequences launched in all (the sum of B over the launches): equal to
 # LAUNCHES where every launch had B = 1, as on the live path
-SEQUENCES = {"viterbi_fwd": 0, "viterbi_back": 0}
+SEQUENCES = {"viterbi_fwd": 0, "viterbi_back": 0, "trough_obs": 0}
 # launches by shape: (B, T, n, w) for the forward kernel, (B, T, n) for the
-# backtrace
-SHAPES = {"viterbi_fwd": {}, "viterbi_back": {}}
+# backtrace, (B, T, L, n) for the trough kernel (B T rows of L lags)
+SHAPES = {"viterbi_fwd": {}, "viterbi_back": {}, "trough_obs": {}}
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "viterbi.cu"
+TROUGH_SOURCE = SOURCE.with_name("trough_obs.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aegis_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -184,7 +191,11 @@ BACK_CHUNK = 64
 # 44 100 Hz, hop 512, in one fused call
 MAX_FRAMES = 1 << 20
 
+# rows a CTA of trough_obs_kernel takes, one warp each (csrc/trough_obs.cu)
+TROUGH_WARPS = 4
+
 _LIB = None
+_TROUGH_LIB = None
 # one build and one binding a process, whichever thread comes first; the
 # others wait for it and get the same library
 _BUILD_LOCK = threading.Lock()
@@ -257,6 +268,22 @@ def library() -> ctypes.CDLL:
             if _LIB is None:
                 _LIB = _bind(build())
     return _LIB
+
+
+def trough_library() -> ctypes.CDLL:
+    """The loaded trough kernel's library (built on first use, once a
+    process)."""
+    global _TROUGH_LIB
+    if _TROUGH_LIB is None:
+        with _LIB_LOCK:
+            if _TROUGH_LIB is None:
+                lib = ctypes.CDLL(str(build(TROUGH_SOURCE)))
+                p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+                lib.aegis_trough_obs.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                                 i, f, f, f, i, p]
+                lib.aegis_trough_obs.restype = ctypes.c_int
+                _TROUGH_LIB = lib
+    return _TROUGH_LIB
 
 
 def _count(name: str, shape: tuple) -> None:
@@ -618,3 +645,80 @@ def decode_attrs(log_obs_v: torch.Tensor, n: int, w: int,
     return {"B": B, "T": T, "n": n, "w": w, "kernel": launch.kernel,
             "tile": launch.tile, "cluster": launch.cluster,
             "passes": launch.passes}
+
+
+# --------------------------------------------------------------------------
+# The trough kernel
+# --------------------------------------------------------------------------
+
+def trough_obs_launch(R: int, L: int, n: int, K: int,
+                      max_smem: int) -> Tuple[int, int]:
+    """(CTAs, bytes of dynamic shared memory a CTA) with which
+    csrc/trough_obs.cu launches trough_obs_kernel on R rows of L lags into
+    n bins with K thresholds: a warp a row, ``TROUGH_WARPS`` rows a CTA; the
+    CTA holds the thresholds and their priors (K each) and the Boltzmann
+    numerators and denominators (L each), and each warp three arrays of L
+    and two of K.  Raises ValueError naming the limit where the kernel
+    cannot launch."""
+    if min(R, L, n, K) < 1:
+        raise ValueError(f"the trough kernel takes R, L, n, K >= 1, got "
+                         f"R={R}, L={L}, n={n}, K={K}")
+    if R > 2 ** 31 - 1:
+        raise ValueError(f"the trough kernel takes at most 2**31 - 1 rows, "
+                         f"got R={R}")
+    smem = 4 * (2 * (K + L) + TROUGH_WARPS * (3 * L + 2 * K))
+    if smem > max_smem:
+        raise ValueError(
+            f"the trough kernel at L={L} lags and K={K} thresholds needs "
+            f"{smem} bytes of shared memory a block, over the {max_smem} a "
+            "block may take")
+    return -(-R // TROUGH_WARPS), smem
+
+
+def trough_obs(yin: torch.Tensor, mask: torch.Tensor, bins: torch.Tensor,
+               thresholds: torch.Tensor, beta_probs: torch.Tensor, n: int,
+               lam: float, no_trough_prob: float) -> torch.Tensor:
+    """The observation plane obs (..., n) of the CMNDF rows yin (..., L)
+    float32 (rows at one stride, lags at unit stride: a slice of a wider
+    plane is read in place), their trough mask (bool) and the pitch bin of
+    every lag (int64), with the (K,) float32 ``thresholds`` and
+    ``beta_probs``: one launch of trough_obs_kernel, bitwise core/pyin.py's
+    ``trough_probabilities`` then ``scatter_bins`` on the card.  CUDA
+    tensors only; counted at (B, T, L, n), B the product of the leading
+    dimensions before the last two (1 for rows (T, L))."""
+    dev = yin.device
+    if dev.type != "cuda":
+        raise ValueError(f"trough_obs launches a CUDA kernel, got a tensor "
+                         f"on {dev} (core/pyin.py::trough_observations runs "
+                         "the plain loops there)")
+    if yin.dim() < 2:
+        raise ValueError(f"yin must be (..., T, L), got {tuple(yin.shape)}")
+    shape = tuple(yin.shape)
+    *lead, T, L = shape
+    B = int(np.prod(lead)) if lead else 1
+    K = thresholds.shape[0] if thresholds.dim() == 1 else -1
+    if yin.dtype != torch.float32 or yin.stride(-1) != 1:
+        raise ValueError(f"yin must be float32 at unit stride along the lags, "
+                         f"got {yin.dtype}, strides {yin.stride()}")
+    try:
+        ld = yin.view(-1, L).stride(0)
+    except RuntimeError:
+        raise ValueError(f"yin's rows must lie at one stride, got strides "
+                         f"{yin.stride()} for shape {shape}") from None
+    _check("mask", mask, torch.bool, shape, dev)
+    _check("bins", bins, torch.int64, shape, dev)
+    _check("thresholds", thresholds, torch.float32, (K,), dev)
+    _check("beta_probs", beta_probs, torch.float32, (K,), dev)
+    max_smem = max_shared_memory(dev)
+    trough_obs_launch(B * T, L, n, K, max_smem)
+    obs = torch.empty(shape[:-1] + (n,), dtype=torch.float32, device=dev)
+    lib = trough_library()
+    with torch.cuda.device(dev):
+        err = lib.aegis_trough_obs(
+            yin.data_ptr(), mask.data_ptr(), bins.data_ptr(),
+            thresholds.data_ptr(), beta_probs.data_ptr(), obs.data_ptr(),
+            B * T, L, ld, n, K, -lam, float(-np.expm1(-lam)), no_trough_prob,
+            max_smem, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "trough_obs")
+    _count("trough_obs", (B, T, L, n))
+    return obs

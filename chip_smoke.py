@@ -10,13 +10,14 @@ live transcribers, the CUDA kernels, the polyphonic stack, the auto router,
 the neural (PitchNet) backend, HPSS stems, the ADSR synth and effect chain,
 the self-verification loops, the REST server, the PitchNet trainer, the
 validation tools, the Streamlit apps, the multi-device paths, the finer
-pitch grids and the warm-up command, in thirty-three phases; each raises on
+pitch grids and the warm-up command, in thirty-four phases; each raises on
 failure:
 
   1. device  — a CUDA device must be present; prints nvidia-smi's name and
                power limit; TF32 off.
-  2. build   — compiles the Viterbi kernels from aegis_tpu_torch/csrc/ with
-               nvcc and prints the seconds and the ptxas report.
+  2. build   — compiles the Viterbi kernels and the trough kernel from
+               aegis_tpu_torch/csrc/ with nvcc and prints the seconds and
+               the ptxas reports.
   3. kernels — each kernel against its plain PyTorch version on the card, on
                synthetic observations (w = 101, T = 2625; w = 51, T = 5249;
                the stream's slab, B = 16, T = 1152; fewer states than one
@@ -24,6 +25,15 @@ failure:
                60 s bench track at 22 050 and 44 100 Hz: backpointers, final
                delta and states identical, with the cluster the wrapper
                picks and with one CTA a sequence.
+ 3a. trough_obs — the trough kernel against the loops it replaces
+               (core/pyin.py's trough_probabilities and scatter_bins) on the
+               card at every main-path row batch: fused 60 s and 120 s at
+               44 100 Hz (n = 450, 900, 2250), 60 s at 22 050 Hz, a live
+               tile, the turbo tiles and the stream's slab, each with a
+               silent row, a row without troughs and a white-noise row:
+               obs and voiced probabilities bitwise, eager and replayed in
+               a CUDA graph, one launch counted; its device ms in a graph
+               beside the loops' and its bound.
   4. slice   — the engine on the card: the 60 s bench track at 22 050 Hz,
                the Karplus-Strong test track and the 60 s bench track at
                44 100 Hz; every kernel's launch count must rise by one per
@@ -452,14 +462,17 @@ def phase_device() -> torch.device:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    so_path = pyin_cuda.build()
+    so_paths = [pyin_cuda.build(), pyin_cuda.build(pyin_cuda.TROUGH_SOURCE)]
     pyin_cuda.library()
+    pyin_cuda.trough_library()
     seconds = time.perf_counter() - t0
-    report = so_path.with_suffix(".ptxas.txt").read_text()
-    for line in report.splitlines():
-        if "ptxas" in line:
-            print(line.strip(), flush=True)
-    emit({"phase": "build", "seconds": seconds, "library": so_path.name})
+    for so_path in so_paths:
+        report = so_path.with_suffix(".ptxas.txt").read_text()
+        for line in report.splitlines():
+            if "ptxas" in line:
+                print(line.strip(), flush=True)
+    emit({"phase": "build", "seconds": seconds,
+          "libraries": [p.name for p in so_paths]})
 
 
 def real_obs(y: np.ndarray, sr: int, dev: torch.device, hop: int = HOP,
@@ -538,6 +551,174 @@ def phase_kernels(dev, tracks, errs) -> dict:
                         tables.band_tab, tables.half_width, 1.0, errs)
         shapes[sr] = (obs, vprob, tables)
     return shapes
+
+
+# the trough kernel's gate: the row batches of the main path, (sample rate,
+# pitch resolution, seconds of a fused take or (B, T) of a tile batch)
+TROUGH_CASES = {
+    "fused60_44100": (44100, 0.1, 60.0),
+    "fused120_44100": (44100, 0.1, 120.0),
+    "fused60_44100_n900": (44100, 0.05, 60.0),
+    "fused60_44100_n2250": (44100, 0.02, 60.0),
+    "fused60_22050": (22050, 0.1, 60.0),
+    "live_tile_44100": (44100, 0.1, (1, 40)),
+    "tiles_44100": (44100, 0.1, (6, 1152)),
+    "stream_slab_22050": (22050, 0.1, (16, 1152)),
+}
+
+
+def n_lags(sr: int, cfg: PyinConfig) -> int:
+    """The CMNDF lags of a frame: 526 at 44 100 Hz, 264 at 22 050 Hz."""
+    return cfg.max_period(sr) - cfg.min_period(sr) + 1
+
+
+def trough_frames(dev, sr: int, cfg: PyinConfig, size, seed: int = 42):
+    """Frames (B, T, frame_length) of a bench take as the main path frames
+    it (a fused take of ``size`` seconds padded to its bucket; a tile batch
+    of ``size`` = (B, T) as B runs of T frames), frame 0 silent and frame 2
+    white noise."""
+    B, T = (1, None) if isinstance(size, float) else size
+    seconds = size if T is None else B * T * HOP / sr + 1.0
+    y = generate_bench_track(seconds, sr=sr, seed=seed)
+    if T is None:
+        y = pad_to_bucket(y)
+    frames = tpyin.extract_pyin_frames(torch.from_numpy(y).to(dev), HOP, cfg)
+    frames = (frames[:B * T] if T is not None else frames).clone()
+    noise = np.random.default_rng(seed).standard_normal(cfg.frame_length)
+    frames[0] = 0.0
+    frames[2] = torch.from_numpy((0.1 * noise).astype(np.float32)).to(dev)
+    return frames.reshape(B, -1, cfg.frame_length)
+
+
+def trough_rows(dev, sr: int, cfg: PyinConfig, size, seed: int = 42):
+    """The CMNDF rows (B, T, L) of ``trough_frames``, row 1 replaced by a
+    falling row (no trough), with their trough mask and bins."""
+    frames = trough_frames(dev, sr, cfg, size, seed)
+    min_p, max_p = cfg.min_period(sr), cfg.max_period(sr)
+    yin = tpyin.cmndf_frames(frames.reshape(-1, cfg.frame_length),
+                             cfg.win_length, min_p, max_p)
+    yin[1] = torch.linspace(2.0, 0.01, yin.shape[1], device=dev)
+    mask = tpyin.trough_mask(yin)
+    bins = tpyin.pitch_bins(tpyin.parabolic_shifts(yin), sr, min_p, cfg)
+    rows = frames.shape[:2] + yin.shape[1:]
+    return yin.reshape(rows), mask.reshape(rows), bins.reshape(rows)
+
+
+def trough_loops(yin, mask, bins, cfg: PyinConfig, tables):
+    """The plain version on the card: the threshold loop, then the per-lag
+    scatter, over the rows (..., L)."""
+    L = yin.shape[-1]
+    probs = tpyin.trough_probabilities(yin.reshape(-1, L),
+                                       mask.reshape(-1, L), cfg, tables)
+    return tpyin.scatter_bins(probs, bins.reshape(-1, L), cfg.n_pitch_bins
+                              ).reshape(yin.shape[:-1] + (cfg.n_pitch_bins,))
+
+
+def captured(fn):
+    """fn() run once, then captured in a CUDA graph on a side stream, its
+    launches recorded and not counted: (the graph, fn's captured output)."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), pyin_cuda.recording_launches():
+        fn()
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph, out
+
+
+def graph_device_ms(fn, calls: int = 1, replays: int = 20) -> float:
+    """Device ms of one fn(): ``calls`` calls captured in one CUDA graph,
+    the median over ``replays`` replays (CUDA events) over ``calls``, with
+    no host time between the launches."""
+    graph, _ = captured(lambda: [fn() for _ in range(calls)])
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def trough_replayed(yin, mask, bins, cfg: PyinConfig, tables):
+    """The kernel captured in a CUDA graph on static inputs that hold
+    other rows (the rows reversed), then replayed on these."""
+    static = [a.flip(-2).contiguous() for a in (yin, mask, bins)]
+    graph, out = captured(
+        lambda: tpyin.trough_observations(*static, cfg, tables))
+    for dst, src in zip(static, (yin, mask, bins)):
+        dst.copy_(src)
+    graph.replay()
+    return out.clone()
+
+
+def trough_gate(dev, name: str) -> dict:
+    """One case of the gate: the kernel's obs and voiced probabilities
+    against the loops' on the card, eager and replayed; the device ms of
+    each inside a CUDA graph beside the kernel's bound (each input byte
+    read once, obs written once, at 3.35 TB/s)."""
+    sr, res, size = TROUGH_CASES[name]
+    cfg = PyinConfig(resolution=res)
+    tables = tables_from_numpy(AudioConfig(sample_rate=sr), cfg, dev)
+    yin, mask, bins = trough_rows(dev, sr, cfg, size)
+    (B, T, L), n = yin.shape, cfg.n_pitch_bins
+    reset_counts()
+    got = tpyin.trough_observations(yin, mask, bins, cfg, tables)
+    if pyin_cuda.SHAPES["trough_obs"] != {(B, T, L, n): 1}:
+        raise AssertionError(f"trough_obs {name}: counted "
+                             f"{pyin_cuda.SHAPES['trough_obs']}, want one "
+                             f"launch at {(B, T, L, n)}")
+    want = trough_loops(yin, mask, bins, cfg, tables)
+    replayed = trough_replayed(yin, mask, bins, cfg, tables)
+
+    def voiced(o):
+        return torch.clamp(o.reshape(-1, n).sum(dim=1), 0.0, 1.0)
+
+    diff = (got != want).reshape(-1, n).any(dim=1)
+    nbytes = B * T * (13 * L + 4 * n)
+    row = {"phase": "trough_obs", "case": name, "B": B, "T": T, "L": L,
+           "n": n, "obs_equal": torch.equal(got, want),
+           "voiced_equal": torch.equal(voiced(got), voiced(want)),
+           "replay_equal": torch.equal(replayed, want),
+           "rows_differing": int(diff.sum()),
+           "max_abs_err": float((got - want).abs().max()),
+           "troughs_of_rows_0_2": mask.reshape(-1, L)[:3].sum(dim=1).tolist(),
+           "device_ms": graph_device_ms(
+               lambda: tpyin.trough_observations(yin, mask, bins, cfg,
+                                                 tables), calls=10),
+           "loops_device_ms": graph_device_ms(
+               lambda: trough_loops(yin, mask, bins, cfg, tables),
+               replays=5),
+           "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+           "card": CARD["nvidia_smi"]}
+    row["roofline_pct"] = 100.0 * row["bound_ms"] / row["device_ms"]
+    emit(row)
+    return row
+
+
+def phase_trough_obs(dev) -> list:
+    """The trough kernel at every main-path row batch, bitwise the loops
+    (obs and voiced probabilities, eager and replayed in a CUDA graph); a
+    silent row and a row without troughs give zeros; one launch counted a
+    call at (B, T, L, n)."""
+    rows = []
+    for name in TROUGH_CASES:
+        row = trough_gate(dev, name)
+        if not (row["obs_equal"] and row["voiced_equal"]
+                and row["replay_equal"]):
+            raise AssertionError(f"trough_obs {name}: not bitwise the "
+                                 f"loops: {row}")
+        if row["troughs_of_rows_0_2"][:2] != [0, 0]:
+            raise AssertionError(f"trough_obs {name}: rows 0-1 have "
+                                 f"troughs {row['troughs_of_rows_0_2']}")
+        rows.append(row)
+    return rows
 
 
 def phase_slice(dev, tracks, per_call: dict) -> dict:
@@ -1597,7 +1778,9 @@ def phase_live_graph(dev) -> None:
         w = tables_from_numpy(AudioConfig(sample_rate=sr), pyin_cfg,
                               dev).half_width
         want = {"viterbi_fwd": {(1, 40, n, w): len(graph)},
-                "viterbi_back": {(1, 40, n): len(graph)}}
+                "viterbi_back": {(1, 40, n): len(graph)},
+                "trough_obs": {(1, 40, n_lags(sr, pyin_cfg), n):
+                               len(graph)}}
         if pyin_cuda.SHAPES != want:
             raise AssertionError(f"live graph {name}: launches "
                                  f"{pyin_cuda.SHAPES}, want {want}")
@@ -1770,7 +1953,8 @@ def phase_fused_graph(dev) -> None:
                     walls.append(1e3 * (time.perf_counter() - t0))
                 ms[name] = float(np.median(walls))
             want = {"viterbi_fwd": {(1, T, n, w): 4},
-                    "viterbi_back": {(1, T, n): 4}}
+                    "viterbi_back": {(1, T, n): 4},
+                    "trough_obs": {(1, T, n_lags(44100, cfg), n): 4}}
             row = {"phase": "fused_graph", "resolution": res, "seconds": sec,
                    "bucket": len(pad_to_bucket(y)), "T": T,
                    "captured_here": fresh, "capture_s": capture_s,
@@ -3560,7 +3744,8 @@ def phase_validate(dev, errs: dict, total: dict) -> list:
         T, n = obs.shape
         w = tables.half_width
         shapes = {"viterbi_fwd": {(1, T, n, w): 1},
-                  "viterbi_back": {(1, T, n): 1}}
+                  "viterbi_back": {(1, T, n): 1},
+                  "trough_obs": {(1, T, n_lags(sr, CFG), n): 1}}
         eng = AegisEngine(sample_rate=sr, device=dev)
         fin = AegisFinancialEngine(sample_rate=sr, device=dev)
         for what, fn in (("v1", lambda: eng.audio_to_midi(y, None)),
@@ -4850,6 +5035,7 @@ def main() -> int:
               for sr in (22050, 44100)}
     errs: dict = {}
     shapes = timed("kernels", phase_kernels, dev, tracks, errs)
+    timed("trough_obs", phase_trough_obs, dev)
     per_call: dict = {}   # a main-path call -> each kernel's launches in it
     launches = timed("slice", phase_slice, dev, tracks, per_call)
     fused_ms = timed("times", phase_times, dev, tracks, shapes)

@@ -99,6 +99,20 @@ def test_viterbi_kernels_equal_plain(cuda, case):
 
 
 @pytest.mark.cuda
+def test_trough_kernel_equals_the_loops_at_every_main_path_batch(cuda):
+    """trough_obs_kernel against the threshold loop and the per-lag
+    scatter it replaces, on the card, at every row batch of the main path
+    (chip_smoke.TROUGH_CASES: fused 60 s and 120 s at 44 100 Hz, n = 450,
+    900 and 2250, 22 050 Hz, a live tile, the turbo tiles, the stream's
+    slab), each with a silent row, a row without troughs and a white-noise
+    row: obs and voiced probabilities bitwise, eager and replayed in a CUDA
+    graph, one launch counted at (B, T, L, n)."""
+    rows = _chip_smoke().phase_trough_obs(cuda)
+    assert len(rows) == len(_chip_smoke().TROUGH_CASES)
+    assert all(r["rows_differing"] == 0 for r in rows)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tile", pyin_cuda.FWD_TILES)
 def test_every_forward_variant_equals_plain(cuda, tile):
     """Each destination tile the library is built with, at every cluster
@@ -362,7 +376,7 @@ def test_live_session_launches_each_kernel_once_a_tile(cuda, financial):
         events = rt.finalize()
         n = len(rt._rows) if dev == "cuda" else 0
         assert pyin_cuda.LAUNCHES == pyin_cuda.SEQUENCES == {
-            "viterbi_fwd": n, "viterbi_back": n}
+            "viterbi_fwd": n, "viterbi_back": n, "trough_obs": n}
         sessions[dev] = (np.concatenate(rt._rows), events)
     (rows_g, ev_g), (rows_c, ev_c) = sessions["cuda"], sessions["cpu"]
     assert ev_g and [(e["note"], e["start"], e["end"]) for e in ev_g] == \
@@ -396,8 +410,10 @@ def test_live_graph_replays_equal_the_eager_body(cuda, case):
     graph = cs.graph_session(cuda, y, sr, financial, cfg)
     w = tables_from_numpy(AudioConfig(sample_rate=sr), cfg, cuda).half_width
     n = cfg.n_pitch_bins
+    L = cs.n_lags(sr, cfg)
     assert pyin_cuda.SHAPES == {"viterbi_fwd": {(1, 40, n, w): len(graph)},
-                                "viterbi_back": {(1, 40, n): len(graph)}}
+                                "viterbi_back": {(1, 40, n): len(graph)},
+                                "trough_obs": {(1, 40, L, n): len(graph)}}
     assert cs.live_graph(cuda, sr, financial, cfg) is not None
     assert cs.same_tiles(graph, cs.eager_tiles(cuda, y, sr, financial, cfg))
 
@@ -471,8 +487,10 @@ def test_fused_graph_replays_equal_the_eager_program(cuda, seconds, res):
     n = cfg.n_pitch_bins
     w = cs.tables_from_numpy(kw["audio"], cfg, cuda).half_width
     T = kw["audio"].n_frames(len(cs.pad_to_bucket(y)))
+    L = cs.n_lags(44100, cfg)
     assert pyin_cuda.SHAPES == {"viterbi_fwd": {(1, T, n, w): 2},
-                                "viterbi_back": {(1, T, n): 2}}
+                                "viterbi_back": {(1, T, n): 2},
+                                "trough_obs": {(1, T, L, n): 2}}
     assert all(cs.same_bytes(g, eager) for g in got)
     kernel = "viterbi_fwd_wide_kernel" if n > 512 else "viterbi_fwd_kernel"
     assert [a["kernel"] for a in graph.captured.decodes] == [kernel]
@@ -707,8 +725,10 @@ def test_kernels_at_the_auto_44100_shape(cuda):
             counts[k] = 0
     a = eng.analyze(y)
     torch.cuda.synchronize()
-    assert pyin_cuda.LAUNCHES == {"viterbi_fwd": 1, "viterbi_back": 1}
-    assert pyin_cuda.LAST_BATCH == {"viterbi_fwd": 1, "viterbi_back": 1}
+    assert pyin_cuda.LAUNCHES == {"viterbi_fwd": 1, "viterbi_back": 1,
+                                  "trough_obs": 1}
+    assert pyin_cuda.LAST_BATCH == {"viterbi_fwd": 1, "viterbi_back": 1,
+                                    "trough_obs": 1}
     assert a["v1"]["f0"].shape == (1 + len(y) // 1024,)
 
 
@@ -852,7 +872,7 @@ def test_tuning_center_on_the_card_equals_the_facade(cuda):
     st = cs.StreamlitStandIn({"Audio file": cs.Upload(wav, "ks.wav")})
     log, counts, _ = cs.run_counted(
         lambda: st.run(tuning_center.main, device=cuda))
-    assert counts == {"viterbi_fwd": 1, "viterbi_back": 1}
+    assert counts == {"viterbi_fwd": 1, "viterbi_back": 1, "trough_obs": 1}
     eng = AegisEngine(sample_rate=44100, device=cuda)
     raw = eng.audio_to_midi(wav, None, start_time=0.0, end_time=None,
                             turbo_mode=False, rake_sensitivity=0.6,
@@ -932,7 +952,7 @@ def test_nccl_world_of_one_equals_the_one_process_program(cuda, tmp_path):
                                       financial=True, device="cuda",
                                       mesh=mesh)
         assert {k: v - before[k] for k, v in pyin_cuda.LAUNCHES.items()} \
-            == one == {"viterbi_fwd": 1, "viterbi_back": 1}
+            == one == {"viterbi_fwd": 1, "viterbi_back": 1, "trough_obs": 1}
         assert mesh_lib.results_equal(got, ref)
     finally:
         dist.destroy_process_group()
