@@ -33,6 +33,7 @@ every rank as the JAX package takes every device.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import numpy as np
@@ -621,6 +622,20 @@ def run_analyze_poly_turbo(
 # Streamed long-track mode (bounded device/host memory)
 # --------------------------------------------------------------------------
 
+# tiles a slab holds on each rank of the time axis (the JAX package's
+# measured default)
+STREAM_SLAB_TILES = 16
+# pass-2 slabs dispatched by run_analyze_streamed in this process
+STREAM_SLABS = 0
+_STREAM_LOCK = threading.Lock()
+
+
+def _count_slab() -> None:
+    global STREAM_SLABS
+    with _STREAM_LOCK:
+        STREAM_SLABS += 1
+
+
 def _trend_full_program(f0_clean: torch.Tensor, probs: torch.Tensor,
                         high_sum: float, total_sum: float, n_frames_f: float,
                         hi_bins: int, n_mels: int) -> Dict[str, torch.Tensor]:
@@ -689,6 +704,14 @@ def run_analyze_streamed(
     rank by default, the slab rounded to a multiple of the time axis as
     the JAX package rounds it; pass 1's interior peak is a ``pmax`` over
     the time row.
+
+    While a profiler runs, the call is one ``aegis.stream`` span (``frames``,
+    ``tiles``, ``slab_tiles``, ``slabs``, ``padded_tiles``, ``transport``)
+    over, in order, ``aegis.stream_stage`` (quantize, edges, uploads),
+    ``aegis.stream_peak`` (pass 1), one ``aegis.stream_slab`` a pass-2
+    slab (``slab``), one ``aegis.stream_fetch`` a grouped fetch
+    (``slabs``) and ``aegis.stream_unpack``; ``STREAM_SLABS`` counts the
+    pass-2 slabs either way.
     """
     turbo = turbo or TurboConfig()
     mesh, device = resolve_mesh(mesh, device, time_only=True)
@@ -699,113 +722,131 @@ def run_analyze_streamed(
 
     true_frames = audio.n_frames(len(y))
     n_tiles_total = max(1, -(-true_frames // tile))
-    # 16 tiles a rank is the JAX package's measured default; never pad a
-    # short track past its own tile count (rounded to the mesh)
-    slab_tiles = slab_tiles or 16 * n_time
+    # STREAM_SLAB_TILES a rank; never pad a short track past its own tile
+    # count (rounded to the mesh)
+    slab_tiles = slab_tiles or STREAM_SLAB_TILES * n_time
     slab_tiles = -(-slab_tiles // n_time) * n_time
     slab_tiles = min(slab_tiles, -(-n_tiles_total // n_time) * n_time)
     slab_samp = slab_tiles * tile * hop
     n_slabs = max(1, -(-n_tiles_total // slab_tiles))
     n_samp = n_slabs * slab_samp
+    int8 = transport == "int8" and slab_samp % PCM8_BLOCK == 0
 
-    if transport == "int8" and slab_samp % PCM8_BLOCK == 0:
-        y_pad = np.zeros(n_samp, np.float32)
-        y_pad[: len(y)] = np.asarray(y, np.float32)
-        q8, bscales = quantize_pcm8(y_pad)
-        q8, bscales = q8[None], bscales[None]
-        nblk = slab_samp // PCM8_BLOCK
-        y16, esc = quantize_pcm16(y_pad)
-        y16 = y16[None]
-        slabs_np = [q8[:, s * slab_samp: (s + 1) * slab_samp]
-                    for s in range(n_slabs)]
-        scales_np = [bscales[:, s * nblk: (s + 1) * nblk]
-                     for s in range(n_slabs)]
-        edge_scale = upload(np.array([esc], np.float32), device)
-    else:
-        y16, scale = quantize_tracks(np.asarray(y, np.float32)[None], n_samp)
-        slabs_np = [y16[:, s * slab_samp: (s + 1) * slab_samp]
-                    for s in range(n_slabs)]
-        scales_np = [scale] * n_slabs
-        edge_scale = None
-
-    def _edge_np(s: int) -> np.ndarray:
-        lo, hi = s * slab_samp, (s + 1) * slab_samp
-        left = y16[:, max(lo - ctx, 0): lo]
-        if left.shape[1] < ctx:
-            left = np.pad(left, ((0, 0), (ctx - left.shape[1], 0)))
-        right = y16[:, hi: hi + ctx]
-        if right.shape[1] < ctx:
-            right = np.pad(right, ((0, 0), (0, ctx - right.shape[1])))
-        return np.concatenate([left, right], axis=1)
-
-    # upload each slab ONCE and reuse it in both passes
-    slabs_dev = [upload(a, device) for a in slabs_np]
-    scales_dev = [upload(a, device) for a in scales_np]
-    edges_dev = [upload(_edge_np(s), device) for s in range(n_slabs)]
-
-    # pass 1: the track-global mel-power reference, reduced on the device
-    peaks = [analyze_audio_sharded(
-        slabs_dev[s], scales_dev[s], rake_sensitivity, audio, pyin_cfg, turbo,
-        slab_tiles, peak_only=True, edge16=edges_dev[s],
-        edge_scale=edge_scale, mesh=mesh) for s in range(n_slabs)]
-    gmax = torch.amax(torch.cat(peaks)).reshape(1)
-
-    # pass 2: the full analyze per slab; outputs fetched in groups
-    rows = _GTR_ROWS if financial else _V1_ROWS
-    n_mels = audio.n_mels if fetch_mel else 0
-    fetch_group = max(1, fetch_group)
-    outs, pending = [], []
-
-    def fetch_batch(hs) -> np.ndarray:
-        buf = (hs[0] if len(hs) == 1
-               else torch.cat(hs, dim=1)).cpu().numpy()[0]
-        return buf.reshape(-1, buf.shape[-1])
-
-    for s in range(n_slabs):
-        pending.append(analyze_audio_sharded(
-            slabs_dev[s], scales_dev[s], rake_sensitivity, audio, pyin_cfg,
-            turbo, slab_tiles, include_mel=fetch_mel, guitar_only=financial,
-            use_guitar_filters=use_guitar_filters, edge16=edges_dev[s],
-            db_ref=gmax, edge_scale=edge_scale, mesh=mesh))
-        if len(pending) >= fetch_group:
-            outs.append(fetch_batch(pending))
-            pending = []
-    if pending:
-        outs.append(fetch_batch(pending))
-    buf = np.concatenate(outs, axis=0)  # (n_slabs*slab_frames, C)
-    del outs
-
-    high_sum = total_sum = 0.0
-    if financial:
-        # the last two columns carry PER-FRAME distortion partial sums,
-        # summed over the full padded window, the convention of every mode
-        sums = buf[:, n_mels + len(rows) - 2:]
-        high_sum, total_sum = sums.sum(axis=0)
-        buf = buf[:, : n_mels + len(rows) - 2]
-        rows = rows[:-2]
-
-    full = _unpack(buf, rows, n_mels)
-    t_pad = buf.shape[0]
-    result = {k: v[:true_frames] for k, v in full.items()}
-    result["onset_env"][0] = 0.0  # synthetic first-tile halo convention
-
-    if financial:
-        f0c = np.where(full["voiced_flag"], full["f0"], np.nan).astype(np.float32)
-        probs = np.asarray(full["voiced_probs"], np.float32)
-        n_mels_a = audio.n_mels
-        hi_bins = n_mels_a - int(n_mels_a * 0.7)
-        if not use_guitar_filters:
-            high_sum = total_sum = 0.0  # distortion_score -> 0
-        fin = _trend_full_program(
-            upload(f0c, device), upload(probs, device),
-            np.float32(high_sum), np.float32(total_sum), np.float32(t_pad),
-            hi_bins, n_mels_a)
-        for k, v in fin.items():
-            arr = v.cpu().numpy()
-            if arr.ndim == 0:
-                result[k] = np.float32(arr)
-            elif k in _INT_ROWS:
-                result[k] = arr[:true_frames].astype(_INT_ROWS[k])
+    with phase("aegis.stream", frames=true_frames, tiles=n_tiles_total,
+               slab_tiles=slab_tiles, slabs=n_slabs,
+               padded_tiles=n_slabs * slab_tiles,
+               transport="int8" if int8 else "int16"):
+        with phase("aegis.stream_stage"):
+            if int8:
+                y_pad = np.zeros(n_samp, np.float32)
+                y_pad[: len(y)] = np.asarray(y, np.float32)
+                q8, bscales = quantize_pcm8(y_pad)
+                q8, bscales = q8[None], bscales[None]
+                nblk = slab_samp // PCM8_BLOCK
+                y16, esc = quantize_pcm16(y_pad)
+                y16 = y16[None]
+                slabs_np = [q8[:, s * slab_samp: (s + 1) * slab_samp]
+                            for s in range(n_slabs)]
+                scales_np = [bscales[:, s * nblk: (s + 1) * nblk]
+                             for s in range(n_slabs)]
+                edge_scale = upload(np.array([esc], np.float32), device)
             else:
-                result[k] = arr[:true_frames]
+                y16, scale = quantize_tracks(np.asarray(y, np.float32)[None],
+                                             n_samp)
+                slabs_np = [y16[:, s * slab_samp: (s + 1) * slab_samp]
+                            for s in range(n_slabs)]
+                scales_np = [scale] * n_slabs
+                edge_scale = None
+
+            def _edge_np(s: int) -> np.ndarray:
+                lo, hi = s * slab_samp, (s + 1) * slab_samp
+                left = y16[:, max(lo - ctx, 0): lo]
+                if left.shape[1] < ctx:
+                    left = np.pad(left, ((0, 0), (ctx - left.shape[1], 0)))
+                right = y16[:, hi: hi + ctx]
+                if right.shape[1] < ctx:
+                    right = np.pad(right, ((0, 0), (0, ctx - right.shape[1])))
+                return np.concatenate([left, right], axis=1)
+
+            # upload each slab ONCE and reuse it in both passes
+            slabs_dev = [upload(a, device) for a in slabs_np]
+            scales_dev = [upload(a, device) for a in scales_np]
+            edges_dev = [upload(_edge_np(s), device) for s in range(n_slabs)]
+
+        # pass 1: the track-global mel-power reference, reduced on the device
+        with phase("aegis.stream_peak"):
+            peaks = [analyze_audio_sharded(
+                slabs_dev[s], scales_dev[s], rake_sensitivity, audio, pyin_cfg,
+                turbo, slab_tiles, peak_only=True, edge16=edges_dev[s],
+                edge_scale=edge_scale, mesh=mesh) for s in range(n_slabs)]
+            gmax = torch.amax(torch.cat(peaks)).reshape(1)
+
+        # pass 2: the full analyze per slab; outputs fetched in groups
+        rows = _GTR_ROWS if financial else _V1_ROWS
+        n_mels = audio.n_mels if fetch_mel else 0
+        fetch_group = max(1, fetch_group)
+        outs, pending = [], []
+
+        def fetch_batch(hs) -> np.ndarray:
+            with phase("aegis.stream_fetch", slabs=len(hs)):
+                buf = (hs[0] if len(hs) == 1
+                       else torch.cat(hs, dim=1)).cpu().numpy()[0]
+                return buf.reshape(-1, buf.shape[-1])
+
+        for s in range(n_slabs):
+            with phase("aegis.stream_slab", slab=s):
+                pending.append(analyze_audio_sharded(
+                    slabs_dev[s], scales_dev[s], rake_sensitivity, audio,
+                    pyin_cfg, turbo, slab_tiles, include_mel=fetch_mel,
+                    guitar_only=financial,
+                    use_guitar_filters=use_guitar_filters,
+                    edge16=edges_dev[s], db_ref=gmax, edge_scale=edge_scale,
+                    mesh=mesh))
+            _count_slab()
+            if len(pending) >= fetch_group:
+                outs.append(fetch_batch(pending))
+                pending = []
+        if pending:
+            outs.append(fetch_batch(pending))
+
+        with phase("aegis.stream_unpack"):
+            buf = np.concatenate(outs, axis=0)  # (n_slabs*slab_frames, C)
+            del outs
+
+            high_sum = total_sum = 0.0
+            if financial:
+                # the last two columns carry PER-FRAME distortion partial
+                # sums, summed over the full padded window, the convention
+                # of every mode
+                sums = buf[:, n_mels + len(rows) - 2:]
+                high_sum, total_sum = sums.sum(axis=0)
+                buf = buf[:, : n_mels + len(rows) - 2]
+                rows = rows[:-2]
+
+            full = _unpack(buf, rows, n_mels)
+            t_pad = buf.shape[0]
+            result = {k: v[:true_frames] for k, v in full.items()}
+            # the synthetic first-tile halo convention
+            result["onset_env"][0] = 0.0
+
+        if financial:
+            f0c = np.where(full["voiced_flag"], full["f0"],
+                           np.nan).astype(np.float32)
+            probs = np.asarray(full["voiced_probs"], np.float32)
+            n_mels_a = audio.n_mels
+            hi_bins = n_mels_a - int(n_mels_a * 0.7)
+            if not use_guitar_filters:
+                high_sum = total_sum = 0.0  # distortion_score -> 0
+            fin = _trend_full_program(
+                upload(f0c, device), upload(probs, device),
+                np.float32(high_sum), np.float32(total_sum),
+                np.float32(t_pad), hi_bins, n_mels_a)
+            for k, v in fin.items():
+                arr = v.cpu().numpy()
+                if arr.ndim == 0:
+                    result[k] = np.float32(arr)
+                elif k in _INT_ROWS:
+                    result[k] = arr[:true_frames].astype(_INT_ROWS[k])
+                else:
+                    result[k] = arr[:true_frames]
     return result

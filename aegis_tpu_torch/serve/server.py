@@ -69,6 +69,9 @@ from aegis_tpu_torch.utils.prof import phase
 log = get_logger("Server")
 
 STATIC_DIR = os.path.join(os.path.dirname(__file__), "static")
+# /api/analyze's turbo=auto streams uploads longer than this (seconds)
+# unless the request names its own stream_threshold_s
+STREAM_THRESHOLD_S = 240.0
 
 
 def _parse_bpm_400(value):
@@ -413,7 +416,7 @@ class AegisServer:
                 raise HTTPError(400, f"unknown turbo mode: {mode}")
             turbo_mode = mode
             if mode == "auto":
-                thr = coerce(query, "stream_threshold_s", 240.0)
+                thr = coerce(query, "stream_threshold_s", STREAM_THRESHOLD_S)
                 start = coerce(query, "start_time", 0.0)
                 end = coerce(query, "end_time", None, float)
                 dur = sess.get("duration_s")  # probed once at upload
@@ -443,7 +446,7 @@ class AegisServer:
                 y, None,
                 turbo_mode=turbo_mode,
                 stream_threshold_s=coerce(query, "stream_threshold_s",
-                                          240.0),
+                                          STREAM_THRESHOLD_S),
                 rake_sensitivity=coerce(query, "rake_sensitivity", 0.6),
                 pitch_backend=pitch_backend,
             )
