@@ -21,7 +21,12 @@ The upload format ("transport") is decided here alone: ``ingest`` takes
 every track or live v1 tile that names one.  Left apart, by layout:
 
   * tiled batches (``quantize_tracks``): one int16 scale a track of a batch;
-  * streamed v1 and neural slabs: slabs and edges on one track-wide scale;
+  * streamed v1 slabs (``engine/turbo.py::stage_int8``): int8 slabs and
+    int16 edges at the track's peak, quantized on the device from float32
+    uploads (``quantize_pcm8_t``, ``quantize_pcm16_t``, bitwise the host
+    quantizers); int16 ones (``quantize_tracks``) where the slab is no
+    block multiple or the caller names int16;
+  * streamed neural slabs: int16 slabs and edges on one track-wide scale;
   * ``StreamingPolyTranscriber._run_tile``: two slabs on one int16 grid;
   * ``core/hpss.py``: one int16 scale, slabs dequantized before its program;
   * ``models/data.py``: a training bank, with its own rule for near-silence.
@@ -113,6 +118,35 @@ def quantize_pcm8(y: np.ndarray):
     peak = np.abs(b).max(axis=1)
     q = np.round(b * (127.0 / np.maximum(peak[:, None], 1e-30)))
     return q.astype(np.int8).reshape(-1), (peak / 127.0).astype(np.float32)
+
+
+# The device twins of quantize_pcm8 / quantize_pcm16, bitwise theirs.  Every
+# division is a true division of two tensors: PyTorch computes ``127.0 / t``
+# as a reciprocal times 127, and on a card ``t / 127.0`` as ``t`` times a
+# reciprocal, each an ulp off NumPy's quotient now and then.
+
+def quantize_pcm8_t(y: torch.Tensor):
+    """``quantize_pcm8`` of a float32 tensor (a multiple of PCM8_BLOCK
+    samples) on its device: (int8 samples, per-block float32 scales,
+    per-block peaks)."""
+    b = y.reshape(-1, PCM8_BLOCK)
+    peak = b.abs().amax(dim=1)
+    k = torch.full_like(peak, 127.0)
+    q = torch.round(b * (k / peak.clamp_min(1e-30))[:, None])
+    return q.to(torch.int8).reshape(-1), peak / k, peak
+
+
+def quantize_pcm16_t(y: torch.Tensor, peak: torch.Tensor):
+    """``quantize_pcm16`` at the samples ``y`` (float32) of a track whose
+    abs-max is ``peak`` (a 0-d float32 tensor on their device): (int16
+    samples, (1,) float32 scale).  The factor is the float64 quotient
+    rounded to float32, as NumPy rounds a Python float before a float32
+    product; a silent track gives zeros and scale 0."""
+    p = peak.to(torch.float64)
+    k = torch.full_like(p, 32767.0)
+    factor = torch.where(p > 0, k / p, 0.0).to(torch.float32)
+    return (torch.round(y * factor).to(torch.int16),
+            (p / k).to(torch.float32).reshape(1))
 
 
 # Block size for the int4 packed block-float transport (one scale per block;

@@ -44,9 +44,9 @@ from aegis_tpu_torch.config import AudioConfig, PyinConfig, TurboConfig
 from aegis_tpu_torch.core import masks, trend
 from aegis_tpu_torch.core.analyze import (_FIN_ROWS, _GTR_ROWS, _INT_ROWS,
                                           _V1_ROWS, PCM8_BLOCK, _unpack,
-                                          check_transport, quantize_pcm8,
-                                          quantize_pcm16, quantize_tracks,
-                                          upload)
+                                          check_transport, quantize_pcm8_t,
+                                          quantize_pcm16_t, quantize_tracks,
+                                          stage, upload)
 from aegis_tpu_torch.core.cqt import onset_from_db
 from aegis_tpu_torch.core.pyin import pyin_from_frames
 from aegis_tpu_torch.core.tables import Tables, tables_from_numpy
@@ -658,6 +658,48 @@ def _trend_full_program(f0_clean: torch.Tensor, probs: torch.Tensor,
     }
 
 
+def _slab_edges(x: np.ndarray, n_slabs: int, slab_samp: int, ctx: int,
+                dtype) -> np.ndarray:
+    """(n_slabs, 2 ctx): the ``ctx`` samples of ``x`` before each slab,
+    then after it, zeros past either end of ``x``."""
+    edges = np.zeros((n_slabs, 2, ctx), dtype)
+    for s in range(n_slabs):
+        for j, a in enumerate((s * slab_samp - ctx, (s + 1) * slab_samp)):
+            lo, hi = max(a, 0), min(a + ctx, len(x))
+            if hi > lo:
+                edges[s, j, lo - a: hi - a] = x[lo:hi]
+    return edges.reshape(n_slabs, 2 * ctx)
+
+
+def stage_int8(y: np.ndarray, n_slabs: int, slab_samp: int, ctx: int,
+               device) -> tuple:
+    """The int8 stream's inputs on ``device``, quantized there: each slab's
+    int8 samples (1, slab_samp) and block scales (1, slab_samp /
+    PCM8_BLOCK), each slab's int16 edges (1, 2 ctx: the ``ctx`` samples
+    before it, then after it, zeros past the track's ends) and their (1,)
+    scale; bitwise ``quantize_pcm8`` and ``quantize_pcm16`` of the track
+    zero-padded to ``n_slabs * slab_samp``.  The host only copies the
+    samples to their upload; one slab's float32 is on the device at a time
+    (and every edge's, ~2 ctx samples a slab), the int8 slabs stay."""
+    buf = torch.empty(slab_samp, dtype=torch.float32, device=device)
+    slabs, scales, peaks = [], [], []
+    for s in range(n_slabs):
+        lo = s * slab_samp
+        m = min(max(len(y) - lo, 0), slab_samp)
+        if m:
+            buf[:m].copy_(stage(np.asarray(y[lo:lo + m], np.float32), device),
+                          non_blocking=True)
+        buf[m:].zero_()
+        q, sc, pk = quantize_pcm8_t(buf)
+        slabs.append(q[None])
+        scales.append(sc[None])
+        peaks.append(pk.amax())
+    e16, edge_scale = quantize_pcm16_t(
+        upload(_slab_edges(y, n_slabs, slab_samp, ctx, np.float32), device),
+        torch.stack(peaks).amax())
+    return slabs, scales, [e16[s:s + 1] for s in range(n_slabs)], edge_scale
+
+
 def run_analyze_streamed(
     y: np.ndarray,
     audio: AudioConfig,
@@ -693,11 +735,13 @@ def run_analyze_streamed(
 
     ``fetch_group``: pass-2 slab outputs are fetched in groups of this many
     through one device-side concat each.  ``transport``: "int8" (default)
-    ships the slabs as block-float int8, the same PCM8_BLOCK grid from
-    sample 0 as the fused int8 path; slab edges stay int16 with the
-    per-track scale.  "int16" keeps the bit-exact-vs-run_analyze_turbo
-    contract; int8 falls back to int16 when the slab length is not a
-    block multiple (tile*hop < 1024 configurations).
+    runs the slabs as block-float int8, the same PCM8_BLOCK grid from
+    sample 0 as the fused int8 path, with int16 slab edges at the track's
+    peak, all quantized on the device from one float32 upload a slab
+    (``stage_int8``, bitwise the host quantizers).  "int16" keeps the
+    bit-exact-vs-run_analyze_turbo contract, quantized on the host
+    (``quantize_tracks``); int8 falls back to it when the slab length is
+    not a block multiple (tile*hop < 1024 configurations).
 
     On a ``mesh`` (in an initialized world with none: every rank on the
     time axis) each slab's tiles spread over the time axis: 16 tiles a
@@ -707,7 +751,8 @@ def run_analyze_streamed(
 
     While a profiler runs, the call is one ``aegis.stream`` span (``frames``,
     ``tiles``, ``slab_tiles``, ``slabs``, ``padded_tiles``, ``transport``)
-    over, in order, ``aegis.stream_stage`` (quantize, edges, uploads),
+    over, in order, ``aegis.stream_stage`` (uploads, quantize, edges;
+    ``ingest`` "device" for int8, "host" for int16),
     ``aegis.stream_peak`` (pass 1), one ``aegis.stream_slab`` a pass-2
     slab (``slab``), one ``aegis.stream_fetch`` a grouped fetch
     (``slabs``) and ``aegis.stream_unpack``; ``STREAM_SLABS`` counts the
@@ -736,42 +781,21 @@ def run_analyze_streamed(
                slab_tiles=slab_tiles, slabs=n_slabs,
                padded_tiles=n_slabs * slab_tiles,
                transport="int8" if int8 else "int16"):
-        with phase("aegis.stream_stage"):
+        with phase("aegis.stream_stage", ingest="device" if int8 else "host"):
             if int8:
-                y_pad = np.zeros(n_samp, np.float32)
-                y_pad[: len(y)] = np.asarray(y, np.float32)
-                q8, bscales = quantize_pcm8(y_pad)
-                q8, bscales = q8[None], bscales[None]
-                nblk = slab_samp // PCM8_BLOCK
-                y16, esc = quantize_pcm16(y_pad)
-                y16 = y16[None]
-                slabs_np = [q8[:, s * slab_samp: (s + 1) * slab_samp]
-                            for s in range(n_slabs)]
-                scales_np = [bscales[:, s * nblk: (s + 1) * nblk]
-                             for s in range(n_slabs)]
-                edge_scale = upload(np.array([esc], np.float32), device)
+                slabs_dev, scales_dev, edges_dev, edge_scale = stage_int8(
+                    y, n_slabs, slab_samp, ctx, device)
             else:
                 y16, scale = quantize_tracks(np.asarray(y, np.float32)[None],
                                              n_samp)
-                slabs_np = [y16[:, s * slab_samp: (s + 1) * slab_samp]
-                            for s in range(n_slabs)]
-                scales_np = [scale] * n_slabs
+                edges = _slab_edges(y16[0], n_slabs, slab_samp, ctx, np.int16)
+                # upload each slab ONCE and reuse it in both passes
+                slabs_dev = [upload(y16[:, s * slab_samp: (s + 1) * slab_samp],
+                                    device) for s in range(n_slabs)]
+                scales_dev = [upload(scale, device)] * n_slabs
+                edges_dev = [upload(edges[s:s + 1], device)
+                             for s in range(n_slabs)]
                 edge_scale = None
-
-            def _edge_np(s: int) -> np.ndarray:
-                lo, hi = s * slab_samp, (s + 1) * slab_samp
-                left = y16[:, max(lo - ctx, 0): lo]
-                if left.shape[1] < ctx:
-                    left = np.pad(left, ((0, 0), (ctx - left.shape[1], 0)))
-                right = y16[:, hi: hi + ctx]
-                if right.shape[1] < ctx:
-                    right = np.pad(right, ((0, 0), (0, ctx - right.shape[1])))
-                return np.concatenate([left, right], axis=1)
-
-            # upload each slab ONCE and reuse it in both passes
-            slabs_dev = [upload(a, device) for a in slabs_np]
-            scales_dev = [upload(a, device) for a in scales_np]
-            edges_dev = [upload(_edge_np(s), device) for s in range(n_slabs)]
 
         # pass 1: the track-global mel-power reference, reduced on the device
         with phase("aegis.stream_peak"):

@@ -5,8 +5,9 @@ streamed reference (``bench_torch/reference/v1_stream.py``) at a small
 tiling, seams included; the server the file builds streaming a take past
 a lowered threshold; the reference at one tile against the whole-track
 reference; the program's spans and slab counter, and outputs bitwise the
-same with the spans on and off.  The last test runs the slab decode on the
-card and skips without one."""
+same with the spans on and off.  The last two tests run on the card and
+skip without one: the slab decode, and whole songs staged on the device
+against the host-staged program."""
 
 import base64
 import copy
@@ -31,6 +32,7 @@ from bench_torch.checks import v1 as v1_check  # noqa: E402
 from bench_torch.checks import v1_grid  # noqa: E402
 from bench_torch.checks import v1_stream as stream_check  # noqa: E402
 from bench_torch.reference import host_v1, v1_device, v1_stream  # noqa: E402
+from test_torch_stream_ingest import host_stage_int8  # noqa: E402
 
 LONG = run.load_json(run.HERE / "configs" / "v1_long_44k.json")
 MIX = run.load_json(run.HERE / "traffic" / "rest_long.json")
@@ -188,7 +190,8 @@ def test_the_stream_records_its_spans_in_order_and_counts_its_slabs():
     kids = sorted((s for s in new if s.parent == root.index),
                   key=lambda s: s.start_ns)
     assert [(s.name, s.attrs) for s in kids] == [
-        ("aegis.stream_stage", {}), ("aegis.stream_peak", {}),
+        ("aegis.stream_stage", {"ingest": "device"}),
+        ("aegis.stream_peak", {}),
         ("aegis.stream_slab", {"slab": 0}), ("aegis.stream_slab", {"slab": 1}),
         ("aegis.stream_fetch", {"slabs": 2}),
         ("aegis.stream_slab", {"slab": 2}),
@@ -272,3 +275,36 @@ def test_a_whole_song_decodes_its_slabs_at_b16_on_the_card():
                == (16, 1152, 450, 51, "viterbi_fwd_kernel", 4)
                for a in decodes)
     assert len(out["f0"]) == 1 + len(pcm) // HOP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seconds", [250.0, 600.0])
+def test_a_whole_song_stages_on_the_card_as_the_host_staged_program(
+        seconds, monkeypatch):
+    """A 250 s and a 600 s take at the file's numbers: the stage span says
+    the int8 slabs were quantized on the device, and every row is bitwise
+    the program's over the host staging (the unchanged host quantizers,
+    ``host_stage_int8``), NaN f0 included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the benchmark's v1_rest_long runs "
+                    "this path on the card")
+    y = takes.pcm_float(_take(seconds))
+
+    def stream():
+        return turbo.run_analyze_streamed(
+            y, program.audio_config(LONG), program.pyin_config(LONG),
+            LONG["analysis"]["rake_sensitivity"], fetch_mel=True,
+            device="cuda")
+
+    before = {s.index for s in prof.spans()}
+    with torch.profiler.profile(activities=CPU):
+        got = stream()
+    stage, = [s for s in prof.spans()
+              if s.index not in before and s.name == "aegis.stream_stage"]
+    assert stage.attrs == {"ingest": "device"}
+    monkeypatch.setattr(turbo, "stage_int8", host_stage_int8)
+    want = stream()
+    assert set(got) == set(want)
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), key
