@@ -40,6 +40,7 @@ from scipy.signal import medfilt
 
 from aegis_tpu_torch.ref import trend_ref
 from aegis_tpu_torch.ref.dsp_ref import amplitude_to_db, hz_to_midi
+from aegis_tpu_torch.utils.prof import phase
 
 
 # --------------------------------------------------------------------------
@@ -611,78 +612,91 @@ def extract_events_financial(
         mirror; VALIDATION.md documents the divergence.
     """
     T = min(len(rake_mask), len(f0), len(rms), len(voiced_flag), len(active_probs))
-    arrays = [rake_mask, f0, voiced_flag, active_probs, rms, trend, artic_codes,
-              slide_codes, financial_confidence]
-    (rake_mask, f0, voiced_flag, active_probs, rms, trend, artic_codes,
-     slide_codes, financial_confidence) = (a[:T] for a in arrays)
+    with phase("aegis.fin_extract", frames=T) as span:
+        with phase("aegis.fin_segment"):
+            arrays = [rake_mask, f0, voiced_flag, active_probs, rms, trend,
+                      artic_codes, slide_codes, financial_confidence]
+            (rake_mask, f0, voiced_flag, active_probs, rms, trend, artic_codes,
+             slide_codes, financial_confidence) = (a[:T] for a in arrays)
 
-    # track-referenced dB plane (see extract_events_v1's note)
-    rms_db = amplitude_to_db(rms, ref=rms_ref)
-    if rms_ref is not None and rms_floor_db is not None:
-        rms_db = np.maximum(rms_db, np.float32(rms_floor_db))
-    combined_conf = active_probs * 0.5 + financial_confidence * 0.5
+            # track-referenced dB plane (see extract_events_v1's note)
+            rms_db = amplitude_to_db(rms, ref=rms_ref)
+            if rms_ref is not None and rms_floor_db is not None:
+                rms_db = np.maximum(rms_db, np.float32(rms_floor_db))
+            combined_conf = active_probs * 0.5 + financial_confidence * 0.5
 
-    if confidence_threshold is None:
-        confidence_threshold = trend_ref.adaptive_confidence_threshold(combined_conf)
+            if confidence_threshold is None:
+                confidence_threshold = (
+                    trend_ref.adaptive_confidence_threshold(combined_conf))
 
-    min_frames = int((min_note_duration_ms / 1000.0) * sr / hop_length)
-    sustain_frames = int((sustain_ms / 1000.0) * sr / hop_length)
+            min_frames = int((min_note_duration_ms / 1000.0) * sr
+                             / hop_length)
+            sustain_frames = int((sustain_ms / 1000.0) * sr / hop_length)
 
-    if pitch_source == "pyin":
-        freq = np.asarray(
-            medfilt(np.nan_to_num(f0), kernel_size=3) if T >= 3
-            else np.nan_to_num(f0), dtype=np.float64)
-    else:
-        freq = np.asarray(trend, dtype=np.float64)
-    finite = np.isfinite(freq)
-    active = (
-        voiced_flag.astype(bool)
-        & finite
-        & (np.nan_to_num(freq) > 0)
-        & (rms_db >= noise_gate_db)
-        & ~rake_mask.astype(bool)
-    )
-    with np.errstate(divide="ignore", invalid="ignore"):
-        notes = np.where(active, np.round(hz_to_midi(np.where(finite, freq, 1.0))), -1)
-    velocity = velocity_from_db(rms_db)
+            if pitch_source == "pyin":
+                freq = np.asarray(
+                    medfilt(np.nan_to_num(f0), kernel_size=3) if T >= 3
+                    else np.nan_to_num(f0), dtype=np.float64)
+            else:
+                freq = np.asarray(trend, dtype=np.float64)
+            finite = np.isfinite(freq)
+            active = (
+                voiced_flag.astype(bool)
+                & finite
+                & (np.nan_to_num(freq) > 0)
+                & (rms_db >= noise_gate_db)
+                & ~rake_mask.astype(bool)
+            )
+            with np.errstate(divide="ignore", invalid="ignore"):
+                notes = np.where(active, np.round(hz_to_midi(
+                    np.where(finite, freq, 1.0))), -1)
+            velocity = velocity_from_db(rms_db)
 
-    starts, ends = _segment(active, notes)
-    events = _build_events(
-        starts, ends, notes, combined_conf, velocity, rms_db, confidence_threshold
-    )
+            starts, ends = _segment(active, notes)
+            events = _build_events(starts, ends, notes, combined_conf,
+                                   velocity, rms_db, confidence_threshold)
 
-    # per-segment articulation: last non-normal code; else first-frame code
-    codes = np.asarray(artic_codes)
-    for evt, s, e in zip(events, starts, ends):
-        seg = codes[s : e + 1]
-        special = np.where((seg >= 2) & (seg <= 4))[0]
-        code = int(seg[special[-1]]) if len(special) else int(seg[0])
-        evt["financial_artic"] = trend_ref.ARTIC_NAMES.get(code)
-        evt["financial_slide"] = trend_ref.SLIDE_NAMES.get(int(slide_codes[s]))
-        evt["technique"] = _TECHNIQUE_CODES.get(code)
+            # per-segment articulation: last non-normal code; else
+            # first-frame code
+            codes = np.asarray(artic_codes)
+            for evt, s, e in zip(events, starts, ends):
+                seg = codes[s : e + 1]
+                special = np.where((seg >= 2) & (seg <= 4))[0]
+                code = int(seg[special[-1]]) if len(special) else int(seg[0])
+                evt["financial_artic"] = trend_ref.ARTIC_NAMES.get(code)
+                evt["financial_slide"] = trend_ref.SLIDE_NAMES.get(
+                    int(slide_codes[s]))
+                evt["technique"] = _TECHNIQUE_CODES.get(code)
 
-    events = [e for e in events if (e["end"] - e["start"]) >= min_frames]
-    events = _sustain_merge(events, sustain_frames)
+            events = [e for e in events
+                      if (e["end"] - e["start"]) >= min_frames]
+            events = _sustain_merge(events, sustain_frames)
 
-    if onset_env is not None:
-        events = apply_onset_refinement(events, onset_env[:T], velocity,
-                                        rms_db, sr, hop_length, min_frames,
-                                        onset_snap_ms,
-                                        snap_fwd_ms=onset_fwd_snap_ms,
-                                        onsets=onsets)
+            if onset_env is not None:
+                events = apply_onset_refinement(
+                    events, onset_env[:T], velocity, rms_db, sr, hop_length,
+                    min_frames, onset_snap_ms, snap_fwd_ms=onset_fwd_snap_ms,
+                    onsets=onsets)
 
-    # ghost_rsi=False defers the density-RSI pass to the caller: the RSI
-    # recurrence runs from bin 0 over the WHOLE track's note density, so a
-    # windowed caller (the live horizon cache) must apply it globally over
-    # the spliced event list, not inside a tail window
-    if ghost_rsi and len(events) > 10:
-        events = filter_ghost_notes_rsi(events, sr, hop_length, rsi_threshold)
+        # ghost_rsi=False defers the density-RSI pass to the caller: the
+        # RSI recurrence runs from bin 0 over the WHOLE track's note
+        # density, so a windowed caller (the live horizon cache) must apply
+        # it globally over the spliced event list, not inside a tail window
+        if ghost_rsi and len(events) > 10:
+            with phase("aegis.fin_ghost"):
+                events = filter_ghost_notes_rsi(events, sr, hop_length,
+                                                rsi_threshold)
 
-    key_info = None
-    if use_harmonic_filter and len(events) > 5:
-        events, key_info = apply_harmonic_context(
-            events, sr, hop_length, confidence_threshold,
-            harmonic_tolerance)
+        key_info = None
+        if use_harmonic_filter and len(events) > 5:
+            with phase("aegis.fin_harmonic"):
+                events, key_info = apply_harmonic_context(
+                    events, sr, hop_length, confidence_threshold,
+                    harmonic_tolerance)
+        if span is not None:
+            main = sum(e["track"] == "main" for e in events)
+            span.attrs.update(events_main=main,
+                              events_safe=len(events) - main)
 
     info = {"threshold": float(confidence_threshold), "key_info": key_info}
     return events, info

@@ -266,10 +266,11 @@ def transcribe_folder(
             with phase("folder.extract", track=i):
                 events, info = feng.extract_events(r, **extract_kwargs)
                 if lead:
-                    events_to_midi_financial(events, sample_rate,
-                                             audio.hop_length,
-                                             bpm=info.get("bpm"),
-                                             output=mid_path)
+                    with phase("folder.midi", track=i):
+                        events_to_midi_financial(events, sample_rate,
+                                                 audio.hop_length,
+                                                 bpm=info.get("bpm"),
+                                                 output=mid_path)
             results.append((p, mid_path, len(events)))
             log.info(f"  {os.path.basename(p)}: {len(events)} events")
         return results
@@ -292,8 +293,9 @@ def transcribe_folder(
                 **extract_kwargs,
             )
             if lead:
-                events_to_midi(events, sample_rate, audio.hop_length,
-                               output=mid_path)
+                with phase("folder.midi", track=i):
+                    events_to_midi(events, sample_rate, audio.hop_length,
+                                   output=mid_path)
         results.append((p, mid_path, len(events)))
         log.info(f"  {os.path.basename(p)}: {len(events)} events")
     return results
