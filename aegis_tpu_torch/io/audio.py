@@ -22,15 +22,18 @@ from aegis_tpu_torch.io.wav import read_wav
 
 
 def to_mono(x: np.ndarray) -> np.ndarray:
+    """Mono float32: the channel mean of (n, channels), a 1-D float32 input
+    itself."""
     if x.ndim == 2:
-        return x.mean(axis=1).astype(np.float32)
-    return x.astype(np.float32)
+        x = x.mean(axis=1)
+    return x.astype(np.float32, copy=False)
 
 
 def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
-    """Polyphase resample to target_sr. Identity if rates match."""
+    """Polyphase resample to target_sr. Identity if rates match (a float32
+    input itself)."""
     if orig_sr == target_sr:
-        return x.astype(np.float32)
+        return x.astype(np.float32, copy=False)
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = target_sr // g, orig_sr // g
     y = _signal.resample_poly(x.astype(np.float64), up, down)
@@ -105,21 +108,28 @@ def load_audio(
     Offset/duration are applied at the *native* rate before resampling, like
     librosa.load's offset/duration arguments.
     """
-    try:
-        x, native_sr = read_wav(path_or_bytes)
+    if duration is not None and duration < 0:
+        # a negative duration would be a Python negative-index slice —
+        # silently analyzing the WRONG region (e.g. end_time <
+        # start_time at the engine facade used to drop the tail and
+        # return seconds 4..9 for the request "region 4..3 s")
+        raise ValueError(f"duration must be non-negative, got {duration}")
+
+    def region(n: int, native_sr: int) -> Tuple[int, int]:
+        """Frames [start, stop) of n that ``[round(offset * sr):]`` and then
+        ``[:round(duration * sr)]`` keep."""
+        start = slice(int(round(offset * native_sr)) if offset else 0,
+                      None).indices(n)[0]
+        if duration is None:
+            return start, n
+        return start, start + min(int(round(duration * native_sr)), n - start)
+
+    try:  # a WAV decodes the region's frames alone
+        x, native_sr = read_wav(path_or_bytes, _region=region)
     except ValueError:
         x, native_sr = _decode_with_ffmpeg(path_or_bytes)
+        x = x[slice(*region(len(x), native_sr))]
     x = to_mono(x)
-    if offset:
-        x = x[int(round(offset * native_sr)) :]
-    if duration is not None:
-        if duration < 0:
-            # a negative duration would be a Python negative-index slice —
-            # silently analyzing the WRONG region (e.g. end_time <
-            # start_time at the engine facade used to drop the tail and
-            # return seconds 4..9 for the request "region 4..3 s")
-            raise ValueError(f"duration must be non-negative, got {duration}")
-        x = x[: int(round(duration * native_sr))]
     if sr is None:  # sr=None: native rate, no resampling (librosa.load parity)
         return x, native_sr
     return resample(x, native_sr, sr), sr

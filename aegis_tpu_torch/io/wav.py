@@ -1,22 +1,37 @@
 """Self-contained WAV codec (the reference leans on soundfile/librosa, which
 are not part of this framework's dependency set).
 
-Supports PCM 16/24/32-bit and IEEE float32/float64, mono or multi-channel.
+Supports PCM 8/16/24/32-bit and IEEE float32/float64, mono or multi-channel.
 Reads return float32 in [-1, 1]; writes accept float arrays and encode PCM16
-by default (or float32).
+by default (or float32).  A read walks the chunk headers over the file's
+bytes in place, then converts the frames asked for once, straight from the
+data chunk.
 """
 
 from __future__ import annotations
 
 import io
+import mmap
 import struct
-from typing import Tuple, Union
+import threading
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
+
+# decodes in this process by route: "direct" where the data chunk's samples
+# went into the output in one conversion (PCM 16 / 32, IEEE float),
+# "general" for PCM 8 / 24
+READS = {"direct": 0, "general": 0}
+_READS_LOCK = threading.Lock()
+
+
+def _count(route: str) -> None:
+    with _READS_LOCK:
+        READS[route] += 1
 
 
 def wav_duration(path_or_bytes: Union[str, bytes, io.BytesIO]) -> float:
@@ -70,34 +85,51 @@ def wav_duration(path_or_bytes: Union[str, bytes, io.BytesIO]) -> float:
             f.close()
 
 
-def read_wav(path_or_bytes: Union[str, bytes, io.BytesIO]) -> Tuple[np.ndarray, int]:
+def _contents(path_or_bytes: Union[str, bytes, io.BytesIO]):
+    """The whole file without a copy where it can be had: ``bytes`` as they
+    are, a path's file mapped read-only (its pages are read where they lie,
+    and the map goes with the last array over it); a file object is read
+    from where it stands."""
+    if isinstance(path_or_bytes, bytes):
+        return path_or_bytes
+    if hasattr(path_or_bytes, "read"):
+        return path_or_bytes.read()
+    with open(path_or_bytes, "rb") as f:
+        try:
+            return mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except (OSError, ValueError):  # an empty file, a pipe
+            return f.read()
+
+
+def read_wav(
+    path_or_bytes: Union[str, bytes, io.BytesIO],
+    *,
+    _region: Optional[Callable[[int, int], Tuple[int, int]]] = None,
+) -> Tuple[np.ndarray, int]:
     """Read a RIFF/WAVE file.
 
     Returns
     -------
     (samples, sample_rate) where samples is float32 with shape (n,) for mono
     or (n, channels) for multi-channel, scaled to [-1, 1].
-    """
-    if isinstance(path_or_bytes, bytes):
-        data = path_or_bytes
-    elif hasattr(path_or_bytes, "read"):
-        data = path_or_bytes.read()
-    else:
-        with open(path_or_bytes, "rb") as f:
-            data = f.read()
 
+    ``_region(frames, sample_rate) -> (start, stop)`` (``load_audio``'s
+    offset and duration) decodes frames [start, stop) alone: bitwise those
+    frames of the whole decode.
+    """
+    data = _contents(path_or_bytes)
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
         raise ValueError("not a RIFF/WAVE file")
 
     fmt = None
-    raw = None
+    raw = None  # (offset, bytes) of the data chunk
     pos = 12
     while pos + 8 <= len(data):
         chunk_id = data[pos : pos + 4]
         (chunk_size,) = struct.unpack_from("<I", data, pos + 4)
-        body = data[pos + 8 : pos + 8 + chunk_size]
+        body = (pos + 8, min(chunk_size, len(data) - pos - 8))
         if chunk_id == b"fmt ":
-            fmt = body
+            fmt = data[body[0] : body[0] + body[1]]
         elif chunk_id == b"data":
             raw = body
         pos += 8 + chunk_size + (chunk_size & 1)  # chunks are word-aligned
@@ -110,43 +142,51 @@ def read_wav(path_or_bytes: Union[str, bytes, io.BytesIO]) -> Tuple[np.ndarray, 
     (audio_format, channels, sample_rate, _byte_rate, _block_align, bits) = (
         struct.unpack_from("<HHIIHH", fmt, 0)
     )
-    if bits in (16, 24, 32, 64):  # clamp data to whole samples (corrupt tail)
-        bps = bits // 8
-        raw = raw[: (len(raw) // bps) * bps]
     if audio_format == _WAVE_FORMAT_EXTENSIBLE and len(fmt) >= 26:
         (audio_format,) = struct.unpack_from("<H", fmt, 24)
-
     if audio_format == _WAVE_FORMAT_PCM:
-        if bits == 16:
-            x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
-        elif bits == 32:
-            x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
-        elif bits == 24:
-            b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
-            x = (
-                b[:, 0].astype(np.int32)
-                | (b[:, 1].astype(np.int32) << 8)
-                | (b[:, 2].astype(np.int32) << 16)
-            )
-            x = np.where(x >= 1 << 23, x - (1 << 24), x).astype(np.float32) / float(
-                1 << 23
-            )
-        elif bits == 8:
-            x = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
-        else:
+        if bits not in (8, 16, 24, 32):
             raise ValueError(f"unsupported PCM bit depth: {bits}")
     elif audio_format == _WAVE_FORMAT_IEEE_FLOAT:
-        if bits == 32:
-            x = np.frombuffer(raw, dtype="<f4").astype(np.float32)
-        elif bits == 64:
-            x = np.frombuffer(raw, dtype="<f8").astype(np.float32)
-        else:
+        if bits not in (32, 64):
             raise ValueError(f"unsupported float bit depth: {bits}")
     else:
         raise ValueError(f"unsupported WAV format code: {audio_format}")
 
-    if channels > 1:
-        x = x[: (len(x) // channels) * channels].reshape(-1, channels)
+    # whole samples (a corrupt tail is cut), then whole frames
+    width = max(channels, 1)
+    frames = raw[1] // (bits // 8) // width
+    start, stop = (0, frames) if _region is None else _region(frames, sample_rate)
+    shape = (stop - start, channels) if channels > 1 else (stop - start,)
+    count = (stop - start) * width
+    first = raw[0] + start * width * (bits // 8)
+
+    if bits == 24:
+        b = np.frombuffer(data, np.uint8, 3 * count, first).reshape(shape + (3,))
+        x = (
+            b[..., 0].astype(np.int32)
+            | (b[..., 1].astype(np.int32) << 8)
+            | (b[..., 2].astype(np.int32) << 16)
+        )
+        x = np.where(x >= 1 << 23, x - (1 << 24), x).astype(np.float32) / float(
+            1 << 23
+        )
+        _count("general")
+    elif bits == 8:
+        b = np.frombuffer(data, np.uint8, count, first).reshape(shape)
+        x = (b.astype(np.float32) - 128.0) / 128.0
+        _count("general")
+    else:  # straight from the chunk's samples, converted once
+        dtype = ("<i" if audio_format == _WAVE_FORMAT_PCM else "<f") + str(bits // 8)
+        samples = np.frombuffer(data, dtype, count, first).reshape(shape)
+        if audio_format == _WAVE_FORMAT_PCM:
+            # a power-of-two scale: the product has the quotient's bits
+            x = np.empty(shape, np.float32)
+            np.multiply(samples, np.float32(2.0 ** (1 - bits)), out=x,
+                        dtype=np.float32)
+        else:
+            x = samples.astype(np.float32)
+        _count("direct")
     return x, sample_rate
 
 

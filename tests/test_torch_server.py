@@ -550,6 +550,34 @@ def test_tiled_and_streamed_modes_match_the_facade(port_server, turbo,
     assert j["num_events"] == len(events) > 0
 
 
+# ------------------------------------------------------------ the decode
+
+def test_analyze_decodes_its_upload_once_on_the_direct_route(port_server):
+    """A PCM16 upload is analyzed from one direct decode, and the answer is
+    the facade's on the JAX package's decode of the same bytes."""
+    from aegis_tpu.io.audio import load_audio as jload_audio
+    from aegis_tpu_torch.io import wav as twav
+
+    srv, url = port_server
+    body = _wav(generate_bench_track(6.0, sr=SR, seed=11))
+    status, _, data = _req(f"{url}/api/upload?name=d.wav", "POST", body)
+    sid = json.loads(data)["session_id"]
+    before = dict(twav.READS)
+    status, _, data = _req(
+        f"{url}/api/analyze/{sid}?turbo=off&confidence_threshold=0.5", "POST")
+    j = json.loads(data)
+    assert status == 200 and j["num_events"] > 0
+    assert twav.READS["direct"] - before["direct"] == 1
+    assert twav.READS["general"] == before["general"]
+    y, _ = jload_audio(body, sr=SR)
+    eng = AegisEngine(sample_rate=SR, device="cpu")
+    buf = io.BytesIO()
+    events = eng.extract_events(eng.audio_to_midi(y, None), buf,
+                                confidence_threshold=0.5)
+    assert base64.b64decode(j["midi_base64"]) == buf.getvalue()
+    assert srv.sessions.get(sid)["events"] == events
+
+
 # -------------------------------------------------------------- concurrency
 
 def test_concurrent_requests_answer_as_sequential_ones(port_server):
