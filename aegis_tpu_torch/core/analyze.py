@@ -550,7 +550,9 @@ class FusedGraphs:
         """The graph of ``key`` and whether this call captured it; on a
         miss ``capture(replays)`` makes it, one capture at a time in the
         process (``graphs.CAPTURE_LOCK``), while other keys' graphs
-        replay."""
+        replay, in an ``aegis.capture`` span (``program``, the graph's
+        ``bucket``, and ``evicted``: the graphs the bound dropped for
+        it)."""
         with self._lock:
             graph = self._graphs.get(key)
             if graph is not None:
@@ -564,11 +566,16 @@ class FusedGraphs:
                 if not self._graphs:
                     self._replays = self._new_replays(self.device)
                 replays = self._replays
-            graph = capture(replays)
-            with self._lock:
-                self._graphs[key] = graph
-                while len(self._graphs) > FUSED_GRAPHS:
-                    self._graphs.popitem(last=False)
+            with phase("aegis.capture", program="fused") as span:
+                graph = capture(replays)
+                evicted = 0
+                with self._lock:
+                    self._graphs[key] = graph
+                    while len(self._graphs) > FUSED_GRAPHS:
+                        self._graphs.popitem(last=False)
+                        evicted += 1
+                if span is not None:
+                    span.attrs.update(bucket=graph.bucket, evicted=evicted)
         return graph, True
 
 

@@ -74,7 +74,7 @@ class AegisFinancialEngine:
         turbo_mode = normalize_turbo_mode(
             kwargs.get("turbo_mode", False), len(y), self.sr,
             kwargs.get("stream_threshold_s", 240.0))
-        with phase("financial.perception"):
+        with phase("aegis.perception"):
             if pitch_backend == "neural":
                 out = analyze_neural(
                     y, self.audio, kwargs.get("rake_sensitivity", 0.6),

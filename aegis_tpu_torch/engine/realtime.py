@@ -264,10 +264,10 @@ class _TileProgram:
     HOST at poll time.
 
     On the CPU every tile runs ``body`` eagerly.  On CUDA the body is
-    captured once, at the first tile (``_LiveGraph``), and every tile of
-    every session replays it: one graph launch in place of ~3 600 kernel
-    launches.  A capture that fails raises; nothing falls back to the
-    eager body."""
+    captured once, at the first tile (``_LiveGraph``, in an
+    ``aegis.capture`` span), and every tile of every session replays it:
+    one graph launch in place of ~3 600 kernel launches.  A capture that
+    fails raises; nothing falls back to the eager body."""
 
     def __init__(self, audio: AudioConfig, pyin_cfg: PyinConfig,
                  turbo: TurboConfig, financial: bool,
@@ -321,8 +321,10 @@ class _TileProgram:
             if self._graph is None:
                 with graphs.CAPTURE_LOCK:
                     if self._graph is None:
-                        self._graph = _LiveGraph(self.body, slab16.shape[0],
-                                                 self.device)
+                        with phase("aegis.capture", program="live",
+                                   evicted=0):
+                            self._graph = _LiveGraph(
+                                self.body, slab16.shape[0], self.device)
             return self._graph(slab16, scale, rake_sens, ref_power)
 
 

@@ -1,5 +1,5 @@
-"""Minimal HTTP routing layer on the standard library. A copy of
-``aegis_tpu/serve/http.py`` (no JAX in it), held equal to it by
+"""Minimal HTTP routing layer on the standard library, ported from
+``aegis_tpu/serve/http.py`` (no JAX in it) and held to its behaviour by
 ``tests/test_torch_server.py``.
 
 fastapi/uvicorn are not part of this framework's dependency set, so the API
@@ -7,6 +7,14 @@ server (serve.server) runs on ``http.server.ThreadingHTTPServer`` with this
 small router: path patterns with ``{param}`` segments, query-string coercion,
 JSON / bytes responses, CORS, and a multipart/form-data file parser for the
 upload endpoint.
+
+While a profiler runs, each exchange the handler serves is one root span,
+``serve.http`` (``method``, ``path``, ``bytes_in``, ``status``,
+``bytes_out``), over ``serve.read`` (``bytes``: the query parse and the body
+read), the router's ``serve.request`` and ``serve.write`` (``bytes``: the
+status line, headers and body), so every span of the exchange shares its
+``request`` number (``utils/prof.py``).  The wait for the next request on a
+kept-alive connection is the client's, and no span's.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import traceback
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from aegis_tpu_torch.utils.prof import phase
 
 
 class HTTPError(Exception):
@@ -128,38 +138,54 @@ def make_handler(router: Router):
         def log_message(self, fmt, *args):  # quiet
             pass
 
-        def _respond(self, resp: Response) -> None:
-            self.send_response(resp.status)
-            self.send_header("Content-Type", resp.media_type)
-            self.send_header("Content-Length", str(len(resp.content)))
-            self.send_header("Access-Control-Allow-Origin", "*")
-            self.send_header("Access-Control-Allow-Headers", "*")
-            self.send_header("Access-Control-Allow-Methods",
-                             "GET, POST, OPTIONS")
-            for k, v in resp.headers.items():
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(resp.content)
+        def _respond(self, resp: Response, http=None) -> None:
+            """Send ``resp``; ``http``, the exchange's span where one is
+            recorded, takes its status and body length."""
+            if http is not None:
+                http.attrs.update(status=resp.status,
+                                  bytes_out=len(resp.content))
+            with phase("serve.write", bytes=len(resp.content)):
+                self.send_response(resp.status)
+                self.send_header("Content-Type", resp.media_type)
+                self.send_header("Content-Length", str(len(resp.content)))
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.send_header("Access-Control-Allow-Headers", "*")
+                self.send_header("Access-Control-Allow-Methods",
+                                 "GET, POST, OPTIONS")
+                for k, v in resp.headers.items():
+                    self.send_header(k, v)
+                self.end_headers()
+                self.wfile.write(resp.content)
 
         def _handle(self, method: str) -> None:
+            with phase("serve.http", method=method) as http:
+                self._exchange(method, http)
+
+        def _exchange(self, method: str, http) -> None:
             try:
-                parsed = urllib.parse.urlparse(self.path)
-                query = {
-                    k: v[0]
-                    for k, v in urllib.parse.parse_qs(parsed.query).items()
-                }
-                length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length else b""
+                with phase("serve.read") as read:
+                    parsed = urllib.parse.urlparse(self.path)
+                    query = {
+                        k: v[0]
+                        for k, v in urllib.parse.parse_qs(parsed.query).items()
+                    }
+                    length = int(self.headers.get("Content-Length") or 0)
+                    body = self.rfile.read(length) if length else b""
+                if read is not None:
+                    read.attrs["bytes"] = len(body)
+                if http is not None:
+                    http.attrs.update(path=parsed.path, bytes_in=len(body))
                 ctype = self.headers.get("Content-Type", "")
                 resp = router.dispatch(method, parsed.path, query, body, ctype)
-                self._respond(resp)
+                self._respond(resp, http)
             except HTTPError as e:
-                self._respond(json_response({"detail": e.detail}, e.status))
+                self._respond(json_response({"detail": e.detail}, e.status),
+                              http)
             except BrokenPipeError:
                 pass
             except Exception as e:
                 traceback.print_exc()
-                self._respond(json_response({"detail": str(e)}, 500))
+                self._respond(json_response({"detail": str(e)}, 500), http)
 
         def do_GET(self):
             self._handle("GET")

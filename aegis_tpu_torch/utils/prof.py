@@ -16,6 +16,13 @@ against each other with no mapping.  Spans nest per thread: a span's
 ``parent`` is the ``index`` of the span open around it on its thread, and
 its ``request`` is its root's, which takes a new number.  A span's self
 time is its duration less its children's.
+
+The interpreter's collections are spans too: a ``gc.callbacks`` hook,
+installed once when the module is imported, records each collection that
+runs while ``recording()`` as one ``py.gc`` span (``generation``,
+``collected``, ``uncollectable``) under the span open on the collecting
+thread.  It opens no ``record_function`` range, so no torch call runs
+inside a collection; off, it costs one flag read a callback.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -33,7 +41,8 @@ from typing import Dict, Iterator, List, Optional
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-# spans kept: a traced slice of any benchmark cell records a few hundred
+# spans kept: a traced slice of any benchmark cell records a few hundred,
+# collections included
 MAX_SPANS = 1 << 16
 
 _BUF: collections.deque = collections.deque(maxlen=MAX_SPANS)
@@ -41,6 +50,9 @@ _INDEX = itertools.count()
 _REQUEST = itertools.count(1)
 _LOCAL = threading.local()
 _OFF = contextlib.nullcontext()
+
+#: the name of a collection's span
+GC_SPAN = "py.gc"
 
 
 @dataclasses.dataclass
@@ -61,6 +73,15 @@ def recording() -> bool:
     return _autograd_profiler._is_profiler_enabled
 
 
+def _stack() -> List[Span]:
+    """The spans open on this thread, innermost last."""
+    stack = getattr(_LOCAL, "stack", None)
+    if stack is None:
+        stack = _LOCAL.stack = []
+        _LOCAL.thread = threading.get_native_id()
+    return stack
+
+
 class _Open:
     """One span while it is open on its thread's stack."""
 
@@ -71,10 +92,7 @@ class _Open:
         self._range = None
 
     def __enter__(self) -> Span:
-        stack = getattr(_LOCAL, "stack", None)
-        if stack is None:
-            stack = _LOCAL.stack = []
-            _LOCAL.thread = threading.get_native_id()
+        stack = _stack()
         sp = self.span
         if stack and stack[-1].name == sp.name:
             # a caller opened the callee's span itself, to give it
@@ -111,6 +129,36 @@ def phase(name: str, **attrs):
     if not recording():
         return _OFF
     return _Open(name, attrs)
+
+
+def _on_gc(when: str, info: Dict) -> None:
+    """The ``gc.callbacks`` hook: one ``py.gc`` span a collection that
+    starts and stops while a profiler runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    if when == "start":
+        _LOCAL.gc = (time.time_ns(), info["generation"])
+        return
+    started = getattr(_LOCAL, "gc", None)
+    if started is None or started[1] != info["generation"]:
+        return
+    end = time.time_ns()
+    _LOCAL.gc = None
+    stack = _stack()
+    outer = stack[-1] if stack else None
+    _BUF.append(Span(GC_SPAN, started[0], end, _LOCAL.thread, next(_INDEX),
+                     outer.index if outer else None,
+                     outer.request if outer else next(_REQUEST),
+                     {"generation": info["generation"],
+                      "collected": info["collected"],
+                      "uncollectable": info["uncollectable"]}))
+
+
+# once a process: a second load of this module finds its hook in place
+if not any(getattr(cb, "__module__", None) == __name__
+           and getattr(cb, "__name__", None) == "_on_gc"
+           for cb in gc.callbacks):
+    gc.callbacks.append(_on_gc)
 
 
 def spans() -> List[Span]:

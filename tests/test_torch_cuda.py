@@ -594,6 +594,39 @@ def test_fused_graph_eviction_frees_the_graph_and_recaptures_it(cuda,
     assert cs.same_bytes(cs.fused_replayed(dev, ys[0], **kw), first)
 
 
+@pytest.mark.cuda
+def test_a_capture_records_its_span(cuda, monkeypatch):
+    """A fused dispatch of a key no graph holds and a tile program's first
+    tile each capture in one ``aegis.capture`` span (the fused one with
+    its bucket, none evicted); the next dispatch and tile replay with
+    none."""
+    from aegis_tpu_torch.core import analyze
+    from aegis_tpu_torch.utils import prof
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    monkeypatch.setitem(analyze._CARDS, dev, analyze.FusedGraphs(dev))
+    kw = cs.fused_args(22050)
+    y = cs.generate_bench_track(5.0, sr=22050, seed=3)
+    rt = cs.live_transcriber(dev, 22050, 24, 8, False)
+    monkeypatch.setattr(cs.tile_program(rt), "_graph", None)
+    before = {s.index for s in prof.spans()}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(2):
+            cs.fused_replayed(dev, y, **kw)
+        for piece in cs.tile_pieces(y, rt)[:2]:
+            cs.feed_tile(rt, piece)
+        torch.cuda.synchronize()
+    got = [s for s in prof.spans()
+           if s.index not in before and s.name == "aegis.capture"]
+    assert [s.attrs for s in got] == [
+        {"program": "fused", "bucket": len(cs.pad_to_bucket(y)),
+         "evicted": 0},
+        {"program": "live", "evicted": 0}]
+    assert cs.tile_program(rt)._graph is not None
+
+
 # ------------------------------------------------- the polyphonic programs
 
 @pytest.mark.cuda

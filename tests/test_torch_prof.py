@@ -1,18 +1,25 @@
 """The port's span recorder (aegis_tpu_torch/utils/prof.py) on the CPU: it
 records nothing without a profiler; with one it records spans of every
-thread, nested, numbered by request and on kineto's clock; and the served
-paths (the REST server, a live session, a folder pass) leave their span
-trees."""
+thread, nested, numbered by request and on kineto's clock, the
+interpreter's collections among them; and the served paths (the REST
+server and its HTTP exchange, a live session, a folder pass, a graph
+capture) leave their span trees."""
 
+import gc
+import http.client
+import importlib.util
 import io
 import json
 import os
 import threading
+from http.server import ThreadingHTTPServer
 
 import torch
 
+from aegis_tpu_torch.core import analyze
 from aegis_tpu_torch.engine.engine import AegisEngine
 from aegis_tpu_torch.io.wav import write_wav
+from aegis_tpu_torch.serve.http import make_handler
 from aegis_tpu_torch.serve.server import AegisServer
 from aegis_tpu_torch.tools.signal_gen import generate_test_track
 from aegis_tpu_torch.utils import prof
@@ -21,13 +28,15 @@ CPU = [torch.profiler.ProfilerActivity.CPU]
 SR = 22050
 
 
-def _recorded(body):
+def _recorded(body, collections=False):
     """The spans recorded while ``body`` runs under a CPU profiler, and the
-    profiler."""
+    profiler; the interpreter's collections, which land wherever one
+    happens to run, only with ``collections``."""
     before = {s.index for s in prof.spans()}
     with torch.profiler.profile(activities=CPU) as p:
         body()
-    return [s for s in prof.spans() if s.index not in before], p
+    return [s for s in prof.spans() if s.index not in before
+            and (collections or s.name != prof.GC_SPAN)], p
 
 
 def _on_thread(fn):
@@ -219,3 +228,121 @@ def test_spans_are_bounded_and_complete():
     many = [s for s in spans if s.name == "test.many"]
     assert len(many) == 1000 and len(prof.spans()) <= prof.MAX_SPANS
     assert all(s.end_ns >= s.start_ns for s in many)
+
+
+def test_an_http_exchange_is_one_request_of_spans():
+    """One upload through the handler on a real server: ``serve.http`` over
+    ``serve.read``, the router's ``serve.request`` and ``serve.write``, in
+    order, on the server's thread, with one request number; the byte
+    counts are the body's and the response's."""
+    srv = AegisServer(engine=AegisEngine(sample_rate=SR, device="cpu"))
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv.router))
+    serving = threading.Thread(target=httpd.serve_forever,
+                               kwargs={"poll_interval": 0.05})
+    serving.start()
+    wav = _wav(1.0)
+    out = {}
+
+    def body():
+        conn = http.client.HTTPConnection("127.0.0.1",
+                                          httpd.server_address[1])
+        conn.request("POST", "/api/upload?name=a.wav", wav,
+                     {"Content-Type": "audio/wav"})
+        resp = conn.getresponse()
+        out["status"], out["body"] = resp.status, resp.read()
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()        # joins the exchange's thread
+    try:
+        spans, _ = _recorded(body)
+    finally:
+        httpd.shutdown()
+        serving.join(timeout=60)
+    assert out["status"] == 200 and json.loads(out["body"])["session_id"]
+    root, = [s for s in spans if s.name == "serve.http"]
+    assert _tree(spans, root) == {
+        "serve.http": ["serve.read", "serve.request", "serve.write"],
+        "serve.read": [], "serve.request": ["serve.upload"],
+        "serve.upload": [], "serve.write": []}
+    assert root.parent is None and root.attrs == {
+        "method": "POST", "path": "/api/upload", "bytes_in": len(wav),
+        "status": 200, "bytes_out": len(out["body"])}
+    by_name = {s.name: s for s in spans}
+    assert by_name["serve.read"].attrs == {"bytes": len(wav)}
+    assert by_name["serve.write"].attrs == {"bytes": len(out["body"])}
+    assert by_name["serve.request"].attrs == {"method": "POST",
+                                              "path": "/api/upload"}
+    assert {s.request for s in spans} == {root.request}
+    assert len({s.thread for s in spans}) == 1
+    assert root.thread != threading.get_native_id()
+    kids = sorted((s for s in spans if s.parent == root.index),
+                  key=lambda s: s.start_ns)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
+
+
+def test_a_collection_is_a_span_under_the_open_phase():
+    """``gc.collect(2)`` inside a phase: one ``py.gc`` span of generation
+    2, the phase its parent, on its thread, with what it collected."""
+    def body():
+        with prof.phase("test.gc"):
+            cycle = [None]
+            cycle[0] = cycle
+            del cycle
+            gc.collect(2)
+    spans, _ = _recorded(body, collections=True)
+    outer, = [s for s in spans if s.name == "test.gc"]
+    got = [s for s in spans if s.name == prof.GC_SPAN
+           and s.parent == outer.index and s.attrs["generation"] == 2]
+    assert len(got) == 1
+    sp = got[0]
+    assert sp.attrs["collected"] >= 1 and sp.attrs["uncollectable"] >= 0
+    assert set(sp.attrs) == {"generation", "collected", "uncollectable"}
+    assert sp.thread == outer.thread == threading.get_native_id()
+    assert sp.request == outer.request
+    assert outer.start_ns <= sp.start_ns <= sp.end_ns <= outer.end_ns
+
+
+def test_off_a_collection_records_nothing():
+    assert not prof.recording()
+    before = {s.index for s in prof.spans()}
+    gc.collect()
+    gc.collect(0)
+    assert not [s for s in prof.spans() if s.index not in before]
+
+
+def test_a_second_load_of_the_recorder_installs_no_second_hook():
+    def hooks():
+        return [cb for cb in gc.callbacks
+                if getattr(cb, "__module__", None) == prof.__name__]
+    assert len(hooks()) == 1
+    spec = importlib.util.spec_from_file_location(prof.__name__,
+                                                  prof.__file__)
+    again = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(again)
+    assert hooks() == [prof._on_gc]
+
+
+class _Graph:
+    """What a capture returns, in place of a ``_FusedGraph``."""
+
+    def __init__(self, bucket):
+        self.bucket = bucket
+
+
+def test_a_capture_is_one_span_a_miss(monkeypatch):
+    """A stand-in graph cache of two: each miss is one ``aegis.capture``
+    with the graph's bucket, a hit none, and the miss that overflows the
+    bound counts the graph it evicted."""
+    monkeypatch.setattr(analyze, "FUSED_GRAPHS", 2)
+    graphs = analyze.FusedGraphs(torch.device("cuda", 0),
+                                 new_replays=lambda device: object())
+
+    def body():
+        for key, bucket in ((0, 100), (0, 100), (1, 200), (2, 300),
+                            (2, 300)):
+            graphs.get(key, lambda pool, b=bucket: _Graph(b))
+    spans, _ = _recorded(body)
+    assert [(s.name, s.attrs) for s in spans] == [
+        ("aegis.capture", {"program": "fused", "bucket": b, "evicted": e})
+        for b, e in ((100, 0), (200, 0), (300, 1))]
+    assert len(graphs) == 2 and 0 not in graphs
